@@ -1,0 +1,1638 @@
+"""Compression engine of the port: FASTA collection -> AGC archive.
+
+Counterpart of ``agc_tpu/core/compressor.py``. The host layers (segment
+matching, LZ, zstd, container, collection) and the host helpers of that
+module are imported as they are; this module copies the ``Compressor``
+class and the ``create_archive`` / ``append_archive`` entry points, and
+binds the port's device ops in the one import block below - the seam
+that later slices swap kernels behind.
+
+Splitter discovery and the membership scans run on ``device``: the CUDA
+kernels of ``agc_tpu_torch.ops.cuda_kmers`` on ``"cuda"``, their plain
+PyTorch versions on ``"cpu"``. Engines give identical splitters, so the
+archive bytes do not depend on the device. Options whose device ops are
+not ported yet raise ``NotImplementedError`` naming their ROADMAP item.
+"""
+
+from __future__ import annotations
+
+import os
+import sys
+import threading
+import time
+from dataclasses import replace as _dc_replace
+
+import numpy as np
+
+from agc_tpu.core.archive import ArchiveWriter
+from agc_tpu.core.codecs import (
+    fixed_u32,
+    fixed_u64,
+    ss_base,
+    ss_delta_name,
+    ss_ref_name,
+)
+from agc_tpu.core.collection import CollectionV3
+from agc_tpu.core.compressor import (
+    EMPTY,
+    EMPTY_KMER,
+    NO_RAW_GROUPS,
+    PK_EMPTY,
+    _STORE_BACKLOG_BYTES,
+    CompressorParams,
+    Kmer,
+    _PendingSeg,
+    _rc_numeric,
+)
+from agc_tpu.core.genome_io import (
+    preprocess_raw_contig,
+    read_contigs_raw,
+    sample_name_from_path,
+)
+from agc_tpu.core.segment import SegmentWriter
+from agc_tpu.version import (
+    AGC_FILE_MAJOR,
+    AGC_FILE_MINOR,
+    COMMENT,
+    PRODUCER,
+    PRODUCER_BUILD,
+    PRODUCER_VERSION,
+)
+
+from ..ops import resolve_device
+from ..ops.kmers import (
+    ScanBatcher,
+    _revcomp_np,
+    _shift_for,
+    collect_kmers_device_packed,
+    find_splitter_emissions_packed,
+    make_scan_table,
+    sort_kmers,
+)
+from ..utils.profiling import StageTimers, device_trace
+
+__all__ = ["Compressor", "CompressorParams", "append_archive", "create_archive"]
+
+def _check_ported(params: CompressorParams) -> None:
+    """Raise for options whose device ops the port does not have yet
+    (named by their ROADMAP item); they never run another engine."""
+    missing = None
+    if params.adaptive_compression:
+        missing = "adaptive mode (-a): candidate tables and new-splitter discovery (ROADMAP A.2)"
+    elif params.fallback_frac > 0:
+        missing = "fallback minimizers (-f): dense candidate scans (ROADMAP A.2)"
+    elif (params.lz_mode or os.environ.get("AGC_TPU_LZ_MODE", "classic")) == "anchor":
+        missing = "lz_mode='anchor': anchor tables of ops/match.py (ROADMAP A.3)"
+    elif os.environ.get("AGC_TPU_DEVICE_MATCH") == "1":
+        missing = "AGC_TPU_DEVICE_MATCH=1: the device match prepass of ops/match.py (ROADMAP A.3)"
+    elif os.environ.get("AGC_TPU_DEVICE_SPLIT") == "1":
+        missing = "AGC_TPU_DEVICE_SPLIT=1: the device split search of ops/match.py (ROADMAP A.3)"
+    elif os.environ.get("AGC_TPU_RANS_DEVICE") not in (None, "", "0"):
+        missing = "AGC_TPU_RANS_DEVICE=1: the device rANS coder (ROADMAP A.4)"
+    if missing:
+        raise NotImplementedError(f"not ported to agc_tpu_torch yet: {missing}")
+
+
+class Compressor:
+    """Create or append to an AGC archive; device work runs on
+    ``device`` ("cuda" by default, "cpu" for the plain versions)."""
+
+    _entropy_batcher = None  # tpu-rans deferred-part sink (lazy)
+
+    def __init__(
+        self,
+        out_path: str,
+        params: CompressorParams | None = None,
+        reference_file: str | None = None,
+        in_path: str | None = None,
+        prefetch: bool = True,
+        device="cuda",
+    ):
+        # private copy: append mode overwrites k/l/b/s/profile from the
+        # input archive, and that must not leak into the caller's object
+        self.p = _dc_replace(params) if params is not None else CompressorParams()
+        self.k = self.p.kmer_length
+        self.archive_version = AGC_FILE_MAJOR * 1000 + AGC_FILE_MINOR
+        if self.p.profile not in ("zstd", "tpu-rans"):
+            # validate BEFORE the writer opens (and truncates) out_path
+            raise ValueError(f"unknown archive profile {self.p.profile!r}")
+        _check_ported(self.p)
+        self.device = resolve_device(device)
+        self.writer = ArchiveWriter(out_path)
+        self.collection: CollectionV3
+        self.map_segments: dict[tuple[int, int], int] = {PK_EMPTY: 0}
+        self.terminators: dict[int, list[int]] = {}
+        self.v_segments: list[SegmentWriter | None] = []
+        self.no_segments = 0
+        self.splitters: np.ndarray = np.empty(0, dtype=np.uint64)
+        self._splitter_set: set[int] = set()
+        # per-barrier buffers (CBufferedSegPart)
+        self._buf_known: dict[int, list[_PendingSeg]] = {}
+        self._buf_new: list[tuple[int, int, _PendingSeg]] = []
+        self.processed_samples = 0
+        self.processed_bases = 0
+        # high-water mark of samples covered by stored metadata batches.
+        # The reference re-stores the final batch when the contig count of
+        # a -c create lands exactly on a batch boundary (the unconditional
+        # end-of-input sync token, agc_compressor.cpp:2240-2248, reaches
+        # the barrier store at :1153-1154 after the names were already
+        # evicted), appending a spurious EMPTY batch part that corrupts a
+        # later append (collection_v3.cpp:97-104 copies it verbatim and
+        # shifts every later batch).  We guard instead of replicating the
+        # bug; see also the trailing-part drop in _init_append.
+        self._batches_stored_end = 0
+        self.file_type_info = {
+            "producer": PRODUCER,
+            "producer_version_major": str(PRODUCER_VERSION[0]),
+            "producer_version_minor": str(PRODUCER_VERSION[1]),
+            "producer_version_build": PRODUCER_BUILD,
+            "file_version_major": str(AGC_FILE_MAJOR),
+            "file_version_minor": str(AGC_FILE_MINOR),
+            "comment": COMMENT,
+        }
+        if self.p.profile != "zstd":
+            self.file_type_info["compression-profile"] = self.p.profile
+        self._closed = False
+        self._mode = None
+        self._n_threads = max(1, (os.cpu_count() or 2) // 2)
+        self._store_pool = None  # persistent pool for async barrier stores
+        self._pending_store = None  # list of in-flight store futures
+        self._pending_meta = []  # in-flight metadata batch compressions
+        self._pending_reference = None  # deferred create-time discovery
+        # per-contig splitter hits of the discovery reference, recorded
+        # during discovery: every splitter is a SINGLETON of the
+        # reference, so its only reference occurrence is its emission
+        # position — the reference sample's membership scan is fully
+        # known before it runs and is skipped
+        self._ref_scan_cache: list[dict] | None = None
+        self._ref_scan_file: str | None = None
+        # discovery's preprocessed reference contigs, handed to the sample
+        # producer so the reference file is read+converted once, not twice
+        self._ref_codes: list[tuple[str, np.ndarray]] | None = None
+        self._ref_codes_ready = threading.Event()
+        self.timers = StageTimers()
+
+        if in_path is not None:
+            self._init_append(in_path, prefetch)
+        else:
+            assert reference_file is not None, "create mode needs a reference file"
+            self._init_create(reference_file)
+
+    # ==================================================================
+    # create / append initialization
+    # ==================================================================
+
+    def _init_create(self, reference_file: str) -> None:
+        self._mode = "create"
+        # splitter discovery is deferred to first use so sample-file
+        # prefetch (add_sample_files' producer pool) overlaps its device
+        # round-trips
+        self._pending_reference = reference_file
+        self.collection = CollectionV3(
+            self.p.pack_cardinality, self.p.segment_size, self.k
+        )
+        self.collection.profile = self.p.profile
+        self._register_collection_streams()
+        self.v_segments = [None] * NO_RAW_GROUPS
+        for gid in range(NO_RAW_GROUPS):
+            self.writer.register_stream(ss_delta_name(self.archive_version, gid))
+            seg = self._make_writer(gid)
+            self.v_segments[gid] = seg
+            seg.add_raw(b"\x7f")  # ensure raw groups exist (agc_compressor.cpp:2313-2321)
+        self.no_segments = NO_RAW_GROUPS
+
+    def _register_collection_streams(self) -> None:
+        """v3 archives MUST carry collection-samples/-contigs/-details as
+        stream ids 0/1/2: the reference's append resolves these streams in
+        the INPUT archive by the ids it just registered in the output
+        archive ("in and out ids for collection-* must be the same!",
+        collection_v3.cpp:48-61) and segfaults on any other layout."""
+        if self.archive_version >= 3000:
+            for s in (
+                "collection-samples",
+                "collection-contigs",
+                "collection-details",
+            ):
+                self.writer.register_stream(s)
+
+    def _init_append(self, in_path: str, prefetch: bool) -> None:
+        """reference: CAGCCompressor::Append + appending_init
+        (agc_compressor.cpp:303-380, 2330-2384)."""
+        self._mode = "append"
+        from agc_tpu.core.decompressor import Decompressor
+
+        d = Decompressor(in_path, prefetch=prefetch)
+        self._append_src = d
+        self.archive_version = d.archive_version
+        self.p.kmer_length = d.kmer_length
+        self.p.min_match_len = d.min_match_len
+        self.p.pack_cardinality = d.pack_cardinality
+        self.p.segment_size = d.segment_size
+        self.k = d.kmer_length
+        # preserve original producer info keys where present
+        for key, val in d.file_type_info.items():
+            if key.startswith("file_version"):
+                self.file_type_info[key] = val
+        # the profile is an archive property: appends continue whatever
+        # profile the input archive was written with
+        self.p.profile = d.file_type_info.get("compression-profile", "zstd")
+        if self.p.profile != "zstd":
+            self.file_type_info["compression-profile"] = self.p.profile
+        elif "compression-profile" in self.file_type_info:
+            del self.file_type_info["compression-profile"]
+
+        self.collection = d.collection
+        self.collection.profile = self.p.profile
+        reader = d.reader
+        self._register_collection_streams()
+        if self.archive_version >= 3000:
+            # Copy all complete old metadata batches verbatim to the new
+            # archive; only the last partial batch is re-serialized together
+            # with new samples (reference: prepare_for_appending_copy /
+            # prepare_for_appending_load_last_batch, collection_v3.cpp:48-108).
+            n_batches = reader.n_parts("collection-contigs")
+            n_old = self.collection.get_no_samples()
+            bs = self.collection.batch_size
+            last_batch_full = n_old % bs == 0
+            # real batch count from the sample count, NOT the part count:
+            # reference -c archives whose contig total lands exactly on a
+            # batch boundary carry a spurious trailing EMPTY batch part
+            # (agc_compressor.cpp:2240-2248 + :1153-1154 store the final
+            # batch twice, the second time after eviction); copying it
+            # would shift every appended batch by one part (that is the
+            # reference's own appending bug, collection_v3.cpp:97-104)
+            real_batches = (n_old + bs - 1) // bs
+            n_copy = (
+                min(n_batches, real_batches)
+                if last_batch_full
+                else real_batches - 1
+            )
+            self._batches_stored_end = n_copy * bs
+            for i in range(n_copy):
+                data, meta = reader.get_part("collection-contigs", i)
+                self.writer.add_part("collection-contigs", data, meta)
+                data, meta = reader.get_part("collection-details", i)
+                self.writer.add_part("collection-details", data, meta)
+            # load the partial last batch (it will be re-stored) and make
+            # every sample's names queryable
+            for sid in range(n_old):
+                self.collection._ensure_sample(
+                    sid, details=(sid // bs) >= n_copy
+                )
+        # legacy (1.x / 2.x) collections are fully loaded by the
+        # Decompressor; the whole collection is re-serialized in the
+        # original format at close (reference: store_metadata_impl_v1/v2)
+        # rebuild segment writers by probing stream names
+        self.no_segments = 0
+        self.v_segments = []
+        while True:
+            ref_s = ss_ref_name(self.archive_version, self.no_segments)
+            delta_s = ss_delta_name(self.archive_version, self.no_segments)
+            if not reader.has_stream(ref_s) and not reader.has_stream(delta_s):
+                break
+            seg = self._make_writer(self.no_segments)
+            seg.appending_init(reader)
+            self.v_segments.append(seg)
+            self.no_segments += 1
+        while self.no_segments < NO_RAW_GROUPS:
+            # archive predates some raw-group streams: create them fresh
+            gid = self.no_segments
+            self.writer.register_stream(ss_delta_name(self.archive_version, gid))
+            seg = self._make_writer(gid)
+            self.v_segments.append(seg)
+            seg.add_raw(b"\x7f")
+            self.no_segments += 1
+
+        # reload splitters
+        part = reader.get_part("splitters", 0)
+        data, n_splitters = part
+        arr = np.frombuffer(data, dtype="<u8").copy()
+        self._splitter_set = set(int(x) for x in arr)
+        self._refresh_splitter_table()
+
+        # reload segment-splitter map + terminators
+        part = reader.get_part("segment-splitters", 0)
+        data, n_entries = part
+        self.map_segments = {PK_EMPTY: 0}
+        for i in range(n_entries):
+            off = i * 20
+            k1 = int.from_bytes(data[off : off + 8], "little")
+            k2 = int.from_bytes(data[off + 8 : off + 16], "little")
+            gid = int.from_bytes(data[off + 16 : off + 20], "little")
+            self.map_segments[(k1, k2)] = gid
+            if k1 != EMPTY and k2 != EMPTY:
+                self.terminators.setdefault(k1, []).append(k2)
+                if k1 != k2:
+                    self.terminators.setdefault(k2, []).append(k1)
+        for v in self.terminators.values():
+            v.sort()
+
+        self.processed_samples = self.collection.get_no_samples()
+
+    def _make_writer(self, gid: int) -> SegmentWriter:
+        w = SegmentWriter(
+            ss_base(self.archive_version, gid),
+            self.writer,
+            self.p.pack_cardinality,
+            self.p.min_match_len,
+            self.archive_version,
+        )
+        w.profile = self.p.profile
+        w.lz_mode = "classic"  # anchor mode raises in _check_ported
+        w.entropy_batcher = self._entropy_sink()
+        return w
+
+    def _entropy_sink(self):
+        """Shared deferred-entropy sink for the tpu-rans profile: part
+        payloads queue here and are rANS-coded in batched device
+        dispatches at store/finish flush points (entropy.compress_parts).
+        None on the zstd profile (zstd compresses inline)."""
+        if self.p.profile != "tpu-rans":
+            return None
+        if self._entropy_batcher is None:
+            from agc_tpu.core.entropy import EntropyBatcher
+
+            self._entropy_batcher = EntropyBatcher(self.writer)
+        return self._entropy_batcher
+
+    # ==================================================================
+    # splitter discovery (device kernels)
+    # ==================================================================
+
+    def _emission_hits(self, codes: np.ndarray, pos_list) -> dict:
+        """Materialize (pos, udir, urc) scan hits for splitter emission
+        positions of one discovery-reference contig (same layout as
+        ScanBatcher.collect: left-aligned u64 codes, position = last base
+        of the k-mer)."""
+        pos = np.asarray(sorted(int(p) for p in pos_list), dtype=np.int64)
+        k = self.k
+        dir_u = np.zeros(len(pos), dtype=np.uint64)
+        for j in range(k):
+            dir_u |= codes[pos - j].astype(np.uint64) << np.uint64(2 * j)
+        rc_u = _revcomp_np(dir_u, k)
+        sh = np.uint64(_shift_for(k))
+        return {
+            "n": len(codes),
+            "hits": (pos, dir_u << sh, rc_u << sh),
+        }
+
+    def determine_splitters(self, reference_file: str) -> None:
+        """reference: agc_compressor.cpp:428-563."""
+        self._ref_scan_file = reference_file
+        try:
+            self._determine_splitters_impl(reference_file)
+        finally:
+            # unblock the sample producer waiting to reuse the reference
+            # contigs (load_file in add_sample_files)
+            self._ref_codes_ready.set()
+
+    # above this many reference positions agc_tpu switches to value-
+    # sampled discovery (a different splitter set), which is not ported
+    _POOL_DEVICE_MAX = 256 << 20
+
+    def _determine_splitters_impl(self, reference_file: str) -> None:
+        """Discovery on ``self.device``: canonical fill of the whole
+        reference in one kmer_canon launch, one pool sort, and the greedy
+        singleton walks of all contigs in one greedy_walk launch."""
+        if self.p.verbosity > 0:
+            # reference stage messages (agc_compressor.cpp:448, 481)
+            print("Gathering reference k-mers", file=sys.stderr)
+            print("Determination of splitters", file=sys.stderr)
+        with self.timers.stage("disc_parse_ref"):
+            named = [
+                (cid, preprocess_raw_contig(raw, cid))
+                for cid, raw in read_contigs_raw(reference_file)
+            ]
+        self._ref_codes = named
+        contigs = [codes for _, codes in named]
+        total = sum(len(c) for c in contigs)
+        if total > self._POOL_DEVICE_MAX:
+            raise NotImplementedError(
+                "not ported to agc_tpu_torch yet: value-sampled discovery "
+                f"for references over {self._POOL_DEVICE_MAX} bases "
+                "(ROADMAP A.2)"
+            )
+        with self.timers.stage("disc_collect"):
+            canon, placements = collect_kmers_device_packed(
+                contigs, self.k, self.device
+            )
+        with self.timers.stage("disc_sort"):
+            pool = sort_kmers(canon)
+        with self.timers.stage("disc_greedy"):
+            emissions = find_splitter_emissions_packed(
+                canon, placements, self.k, pool, self.p.segment_size
+            )
+        del canon, pool
+        splitters: list[int] = []
+        cache = []
+        for codes, (pos, kmers, tail_pos, tail_kmer) in zip(contigs, emissions):
+            splitters.extend(int(x) for x in kmers)
+            emitted = [int(x) for x in pos]
+            last = int(pos[-1]) if len(pos) else None
+            if tail_pos is not None and (last is None or tail_pos >= last + self.k):
+                splitters.append(int(tail_kmer))
+                emitted.append(int(tail_pos))
+            cache.append(self._emission_hits(codes, emitted))
+        self._ref_scan_cache = cache
+        self._splitter_set = set(splitters)
+        self._refresh_splitter_table()
+        if self.p.verbosity > 1:
+            print(f"No. of splitters: {len(self._splitter_set)}", file=sys.stderr)
+
+    def _ensure_splitters(self) -> None:
+        if self._pending_reference is not None:
+            ref_file = self._pending_reference
+            self._pending_reference = None
+            with self.timers.stage("splitter_discovery"):
+                self.determine_splitters(ref_file)
+            if self.p.verbosity > 1:
+                print(f"No. of splitters: {len(self._splitter_set)}", file=sys.stderr)
+
+    def add_cmd_line(self, cmd: str) -> None:
+        """reference: CAGCCompressor::AddCmdLine (agc_compressor.cpp:2395).
+        Persisted only by the v1/v2 collection serializers, like the
+        reference (the v3 serializer drops command lines)."""
+        fn = getattr(self.collection, "add_cmd_line", None)
+        if fn is not None:
+            fn(cmd)
+
+    def splitter_set_snapshot(self) -> set:
+        self._ensure_splitters()
+        return set(self._splitter_set)
+
+    def _refresh_splitter_table(self) -> None:
+        """Rebuild the sorted splitter table and its device-resident copy
+        (uploaded once per change, not per contig)."""
+        self.splitters = np.array(sorted(self._splitter_set), dtype=np.uint64)
+        self._splitters_dev = make_scan_table(self.splitters, self.k, self.device)
+
+    # ==================================================================
+    # sample ingestion
+    # ==================================================================
+
+    def _process_contig_batch(self, items: list[tuple[str, str, np.ndarray]]) -> None:
+        """Run one barrier-delimited batch of contigs (concatenated mode)
+        through the device scan pipeline: ALL scans of the batch are
+        dispatched first (the batcher groups them into multi-row
+        dispatches; the table is constant within a barrier), then the
+        host matches in order — draining by a fixed depth would force one
+        tiny dispatch per contig for small-genome collections."""
+        batcher = ScanBatcher(self.k, self._splitters_dev)
+        tokens = [batcher.add(codes) for _, _, codes in items]
+        batcher.flush()
+        for (sname, cid, codes), token in zip(items, tokens):
+            with self.timers.stage("scan_collect"):
+                hits = batcher.collect(token)
+            with self.timers.stage("match_contig", len(codes)):
+                self._process_contig(sname, cid, codes, hits=hits)
+
+    def add_sample_files(self, sample_files: list[tuple[str, str]]) -> bool:
+        """reference: CAGCCompressor::AddSampleFiles (agc_compressor.cpp:2118).
+
+        Batches are barrier-delimited exactly as in the reference (one
+        sample per barrier; in concatenated mode, pack_cardinality contigs
+        per barrier).
+        """
+        if self.p.concatenated_genomes:
+            self._ensure_splitters()
+            self._ref_codes = None  # reused only by the pipelined path
+            batch: list[tuple[str, str, np.ndarray]] = []
+            n_in_batch = self.processed_samples % self.p.pack_cardinality
+            for _fname, path in sample_files:
+                self.collection.reset_prev_sample_name()
+                try:
+                    contig_iter = list(read_contigs_raw(path))
+                except OSError:
+
+                    print(f"Cannot open file: {path}", file=sys.stderr)
+                    continue
+                for cid, raw in contig_iter:
+                    if not self.collection.register_sample_contig("", cid):
+                        print(
+                            f"Error: Pair sample_name:contig_name {cid}:{cid} "
+                            "is already in the archive!",
+                            file=sys.stderr,
+                        )
+                        continue
+                    batch.append(("", cid, preprocess_raw_contig(raw, cid)))
+                    n_in_batch += 1
+                    if n_in_batch >= self.p.pack_cardinality:
+                        self._process_contig_batch(batch)
+                        self._synchronize()
+                        batch = []
+                        n_in_batch = 0
+            self._process_contig_batch(batch)
+            self._synchronize()
+            return True
+
+        # Pipelined path: scans are dispatched across sample barriers (the
+        # splitter table is fixed after discovery, so batching them past a
+        # barrier is byte-identical to the reference's sequential schedule)
+        from collections import deque
+        from concurrent.futures import ThreadPoolExecutor
+
+        # producer pool: FASTA read + ASCII->numeric conversion run ahead
+        # of matching with a bounded prefetch window (reference: the
+        # AddSampleFiles producer thread, agc_compressor.cpp:2160-2251;
+        # the native converter releases the GIL, so files genuinely parse
+        # in parallel). Started BEFORE splitter discovery so the first
+        # samples load while discovery waits on the device.
+        def load_file(path):
+            if path == (self._pending_reference or self._ref_scan_file):
+                # the discovery pass already reads+converts this file;
+                # wait for it and reuse its contigs (one core: the
+                # duplicate parse would serialize with everything else)
+                self._ref_codes_ready.wait()
+                out, self._ref_codes = self._ref_codes, None
+                if out is not None:
+                    return out
+            try:
+                with self.timers.stage("parse_fasta"):
+                    return [
+                        (cid, preprocess_raw_contig(raw, cid))
+                        for cid, raw in read_contigs_raw(path)
+                    ]
+            except OSError:
+                # unopenable input: warn and skip, like the reference
+                # (agc_compressor.cpp:2165-2168)
+
+                print(f"Cannot open file: {path}", file=sys.stderr)
+                return []
+
+        window = 3  # samples read ahead
+        # byte bound: at assembly-scale samples (500 MB+) a 3-sample
+        # window alone held 1.5 GB of codes (round-4 5 Gbase run: 9.6 GB
+        # peak vs the reference's 4.3). FASTA file size ≈ bases, so cap
+        # the prefetch by on-disk bytes too (always ≥ 1 ahead).
+        _WINDOW_BYTES = int(
+            os.environ.get("AGC_TPU_PREFETCH_MB", "256")
+        ) << 20
+        producer_pool = ThreadPoolExecutor(max_workers=window)
+        pending: deque = deque()
+        next_file = 0
+
+        def top_up():
+            nonlocal next_file
+            while next_file < len(sample_files) and len(pending) < window:
+                sname, path = sample_files[next_file]
+                if pending:
+                    try:
+                        ahead = sum(
+                            os.path.getsize(p2)
+                            for _, _, _, p2 in pending
+                        )
+                    except OSError:
+                        ahead = 0
+                    if ahead >= _WINDOW_BYTES:
+                        break
+                pending.append(
+                    (next_file, sname,
+                     producer_pool.submit(load_file, path), path)
+                )
+                next_file += 1
+
+        top_up()
+        self._ensure_splitters()
+        batcher = ScanBatcher(self.k, self._splitters_dev)
+
+        def gen():
+            try:
+                while pending:
+                    si, sample_name, fut, _path = pending.popleft()
+                    contigs = fut.result()
+                    top_up()
+                    # collection registration stays on the consumer thread
+                    # (deterministic order w.r.t. barriers)
+                    self.collection.reset_prev_sample_name()
+                    for ci, (cid, codes) in enumerate(contigs):
+                        if not self.collection.register_sample_contig(
+                            sample_name, cid
+                        ):
+                            print(
+                                f"Error: Pair sample_name:contig_name "
+                                f"{sample_name}:{cid} is already in the "
+                                "archive!",
+                                file=sys.stderr,
+                            )
+                            continue
+                        yield si, sample_name, cid, codes, ci
+            finally:
+                producer_pool.shutdown(wait=False)
+
+        def cached_hits(si, ci, codes):
+            """Precomputed splitter hits for the discovery reference's
+            own contigs: every splitter is a reference singleton, so its
+            only occurrence is its recorded emission position — the
+            membership scan's outcome is known without running it."""
+            if (
+                self._ref_scan_cache is None
+                or sample_files[si][1] != self._ref_scan_file
+            ):
+                return None
+            if ci >= len(self._ref_scan_cache):
+                return None
+            ent = self._ref_scan_cache[ci]
+            if ent["n"] != len(codes) or ent["hits"] is None:
+                return None
+            return ent["hits"]
+
+        pipeline: deque = deque()
+        prev_si = None
+
+        def drain_one():
+            nonlocal prev_si
+            e = pipeline.popleft()
+            if prev_si is not None and e["si"] != prev_si:
+                self._synchronize()
+            prev_si = e["si"]
+            with self.timers.stage("scan_collect"):
+                hits = batcher.collect(e["token"])
+            with self.timers.stage("match_contig", len(e["codes"])):
+                self._process_contig(e["sname"], e["cid"], e["codes"],
+                                     hits=hits)
+
+        def oldest_dispatched() -> bool:
+            token = pipeline[0]["token"]
+            return token["kind"] != "parts" or all(
+                "out" in p for p in token["parts"]
+            )
+
+        # drain policy: consume an entry once its scan has actually been
+        # DISPATCHED (the batcher auto-flushes every 8 Mbase); draining on
+        # a fixed count would force one tiny dispatch per contig for
+        # small-genome collections (e.g. SARS-CoV-2: one RTT per sample).
+        # pipeline_syms caps buffered memory for huge-contig inputs; the
+        # LOW-water target keeps ~4 flush quanta in flight: draining all
+        # dispatched entries in one burst leaves the device idle while the
+        # host works through barriers.
+        pipeline_syms = 0
+        _MAX_PIPELINE_SYMS = 64 << 20
+        _TARGET_SYMS = 32 << 20
+        _MIN_DEPTH = 4
+
+        for si, sname, cid, codes, ci in gen():
+            hits = cached_hits(si, ci, codes)
+            with self.timers.stage("pack_dispatch"):
+                token = (
+                    {"kind": "precomputed", "hits": hits}
+                    if hits is not None
+                    else batcher.add(codes)
+                )
+            pipeline.append(
+                {"si": si, "sname": sname, "cid": cid, "codes": codes,
+                 "token": token}
+            )
+            pipeline_syms += len(codes)
+            while pipeline and (
+                pipeline_syms > _MAX_PIPELINE_SYMS
+                or (
+                    pipeline_syms > _TARGET_SYMS
+                    and len(pipeline) > _MIN_DEPTH
+                    and oldest_dispatched()
+                )
+            ):
+                if not oldest_dispatched():
+                    batcher.flush()
+                pipeline_syms -= len(pipeline[0]["codes"])
+                drain_one()
+        batcher.flush()
+        while pipeline:
+            drain_one()
+        if prev_si is not None:
+            self._synchronize()
+        return True
+
+    def _synchronize(self) -> None:
+        """Per-sample barrier: registration, store, metadata batch
+        (reference: worker protocol, agc_compressor.cpp:1114-1237)."""
+        self._register_segments()
+        with self.timers.stage("store_segments"):
+            self._store_segments(async_ok=True)
+        # advance sample counter & flush metadata batch
+        if not self.p.concatenated_genomes:
+            self.processed_samples += 1
+        else:
+            self.processed_samples = min(
+                (self.processed_samples // self.p.pack_cardinality + 1)
+                * self.p.pack_cardinality,
+                self.collection.get_no_samples(),
+            )
+        if (
+            self.processed_samples % self.p.pack_cardinality == 0
+            and self.archive_version >= 3000
+            # skip when this batch is already on disk: the end-of-input
+            # sync of a -c create re-enters here with an unchanged,
+            # batch-aligned sample count (the reference then writes an
+            # empty duplicate batch, agc_compressor.cpp:1153-1154)
+            and self.processed_samples > self._batches_stored_end
+        ):
+            # batch metadata serializes placements: in-flight stores must land
+            self._join_pending_store()
+            if self._store_pool is None:
+                from concurrent.futures import ThreadPoolExecutor
+
+                self._store_pool = ThreadPoolExecutor(max_workers=1)
+            self._batches_stored_end = self.processed_samples
+            fut = self.collection.store_contig_batch(
+                self.writer,
+                self.processed_samples - self.p.pack_cardinality,
+                self.processed_samples,
+                executor=self._store_pool,
+                evict=True,
+            )
+            if fut is not None:
+                self._pending_meta.append(fut)
+        self.writer.flush_buffers()
+
+    # ==================================================================
+    # contig segmentation
+    # ==================================================================
+
+    def _process_contig(
+        self, sample_name: str, contig_name: str, codes: np.ndarray, hits,
+    ) -> bool:
+        """reference: compress_contig (agc_compressor.cpp:1997-2051).
+
+        ``hits``: the (pos, udir, urc) splitter hits of the contig, from
+        the scan pipeline."""
+        n = len(codes)
+        old_pb = self.processed_bases
+        self.processed_bases += n
+        if (
+            self.p.verbosity > 0
+            and old_pb // 10_000_000 != self.processed_bases // 10_000_000
+        ):
+
+            print(
+                f"Compressed: {self.processed_bases // 1_000_000} Mb",
+                end="\r",
+                file=sys.stderr,
+            )
+        cuts: list[int] = []
+        cut_kmers: dict[int, Kmer] = {}
+        if n >= self.k and len(self.splitters):
+            hits, h_udir, h_urc = hits
+            last = None
+            for hi, p in enumerate(hits.tolist()):
+                if last is not None and p < last + self.k:
+                    continue
+                cuts.append(p)
+                cut_kmers[p] = Kmer(int(h_udir[hi]), int(h_urc[hi]), True)
+                last = p
+
+        seg_part_no = 0
+        split_pos = 0
+        split_kmer = EMPTY_KMER
+        for p in cuts:
+            kmer_here = cut_kmers[p]
+            segment = codes[split_pos : p + 1]
+            extra = self._add_segment(
+                sample_name, contig_name, seg_part_no, segment, split_kmer,
+                kmer_here,
+            )
+            seg_part_no += 1 + extra
+            split_pos = p + 1 - self.k
+            split_kmer = kmer_here
+        if split_pos < n:
+            self._add_segment(
+                sample_name,
+                contig_name,
+                seg_part_no,
+                codes[split_pos:],
+                split_kmer,
+                EMPTY_KMER,
+            )
+        return True
+
+    # ==================================================================
+    # segment -> group matching (reference: add_segment, 1275-1499)
+    # ==================================================================
+
+    def _add_segment(
+        self,
+        sample: str,
+        contig: str,
+        part_no: int,
+        segment: np.ndarray,
+        kmer_front: Kmer,
+        kmer_back: Kmer,
+    ) -> int:
+        """Returns 1 when the segment was split into two parts, else 0."""
+        pk = PK_EMPTY
+        store_rc = False
+        segment_rc: np.ndarray | None = None
+        segment2 = None
+        segment2_rc = None
+        store2_rc = False
+        segment_id = -1
+        segment_id2 = -1
+
+        # no splitter on either side: pk stays PK_EMPTY (a raw group)
+        if kmer_front.full and kmer_back.full:
+            if kmer_front.data() < kmer_back.data():
+                pk = (kmer_front.data(), kmer_back.data())
+            else:
+                # RC + byte conversion deferred to the store worker
+                # (_PendingSeg.materialize); the matcher never reads them
+                pk = (kmer_back.data(), kmer_front.data())
+                store_rc = True
+        elif kmer_front.full:
+            segment_rc = _rc_numeric(segment)
+            pk, store_rc = self._find_cand_one_splitter(
+                kmer_front, segment, segment_rc
+            )
+        elif kmer_back.full:
+            kmer = kmer_back.swapped()
+            segment_rc = _rc_numeric(segment)
+            pk, store_dir = self._find_cand_one_splitter(
+                kmer, segment_rc, segment
+            )
+            store_rc = not store_dir
+
+        found = pk in self.map_segments
+
+        # missing-middle split (reference: 1419-1496)
+        if (
+            not self.p.concatenated_genomes
+            and not found
+            and pk[0] != EMPTY
+            and pk[1] != EMPTY
+            and pk[0] in self.terminators
+            and pk[1] in self.terminators
+        ):
+            if segment_rc is None:
+                segment_rc = _rc_numeric(segment)
+            if kmer_front.data() == kmer_back.data():
+                if not kmer_front.is_dir_oriented():
+                    store_rc = True
+            else:
+                kmer1, kmer2 = kmer_front, kmer_back
+                use_rc = False
+                if kmer1.data() > kmer2.data():
+                    kmer1, kmer2 = kmer2.swapped(), kmer1.swapped()
+                    use_rc = True
+                middle, best_pos = self._find_missing_middle(
+                    kmer1,
+                    kmer2,
+                    segment_rc if use_rc else segment,
+                    segment if use_rc else segment_rc,
+                )
+                if middle != EMPTY:
+                    left_size = best_pos
+                    right_size = len(segment) - best_pos
+                    if left_size == 0:
+                        store_rc = use_rc if middle < kmer2.data() else not use_rc
+                        pk = (min(middle, kmer2.data()), max(middle, kmer2.data()))
+                    elif right_size == 0:
+                        store_rc = use_rc if kmer1.data() < middle else not use_rc
+                        pk = (min(kmer1.data(), middle), max(kmer1.data(), middle))
+                    else:
+                        if use_rc:
+                            left_size, right_size = right_size, left_size
+                        seg2_start = left_size - self.k // 2
+                        segment2 = segment[seg2_start:]
+                        segment = segment[: seg2_start + self.k]
+                        if kmer_front.data() < middle:
+                            store_rc = False
+                            pk = (kmer_front.data(), middle)
+                        else:
+                            store_rc = True
+                            segment_rc = _rc_numeric(segment)
+                            pk = (middle, kmer_front.data())
+                        segment_id = self.map_segments[pk]
+                        if middle < kmer_back.data():
+                            store2_rc = False
+                            pk2 = (middle, kmer_back.data())
+                        else:
+                            store2_rc = True
+                            segment2_rc = _rc_numeric(segment2)
+                            pk2 = (kmer_back.data(), middle)
+                        segment_id2 = self.map_segments[pk2]
+            found = pk in self.map_segments
+
+        def _bytes(arr):
+            return arr.astype(np.uint8, copy=False).tobytes()
+
+        def pending(part):
+            if store_rc and segment_rc is None:
+                return _PendingSeg(
+                    sample, contig, part, None, store_rc, raw=segment
+                )
+            return _PendingSeg(
+                sample, contig, part,
+                _bytes(segment_rc if store_rc else segment), store_rc,
+            )
+
+        if not found:
+            self._buf_new.append((pk[0], pk[1], pending(part_no)))
+            return 0
+
+        if segment_id2 == -1:
+            segment_id = self.map_segments[pk]
+        self._buf_known.setdefault(segment_id, []).append(pending(part_no))
+        if segment_id2 >= 0:
+            data2 = _bytes(segment2_rc if store2_rc else segment2)
+            self._buf_known.setdefault(segment_id2, []).append(
+                _PendingSeg(sample, contig, part_no + 1, data2, store2_rc)
+            )
+            return 1
+        return 0
+
+    # ------------------------------------------------------------------
+
+    def _one_splitter_cands(
+        self, kmer: Kmer, seg_size: int
+    ) -> list[tuple[int, int, bool]] | None:
+        """Ordered candidate (k1, k2, is_rc) triples for a one-splitter
+        search: terminator neighbors ranked by ref-size proximity
+        (reference: find_cand_segment_with_one_splitter, 1630-1718).
+        None when the splitter has no terminators (one-sided group)."""
+        d = kmer.data()
+        terms = self.terminators.get(d)
+        if not terms:
+            return None
+        candidates = []
+        for cand in terms:
+            if cand < d:
+                candidates.append((cand, d, True))
+            else:
+                candidates.append((d, cand, False))
+        self._ensure_groups_ready(
+            self.map_segments[(c0, c1)] for c0, c1, _ in candidates
+        )
+        ref_sizes = {}
+        for c0, c1, is_rc in candidates:
+            gid = self.map_segments[(c0, c1)]
+            ref_sizes[(c0, c1)] = self.v_segments[gid].get_ref_size()
+        candidates.sort(
+            key=lambda c: (abs(seg_size - ref_sizes[(c[0], c[1])]), ref_sizes[(c[0], c[1])])
+        )
+        return candidates
+
+    def _find_cand_one_splitter(
+        self,
+        kmer: Kmer,
+        segment_dir: np.ndarray,
+        segment_rc: np.ndarray,
+    ) -> tuple[tuple[int, int], bool]:
+        """reference: find_cand_segment_with_one_splitter (1630-1808)."""
+        d = kmer.data()
+
+        def one_sided():
+            if kmer.is_dir_oriented():
+                return (d, EMPTY), False
+            return (EMPTY, d), True
+
+        seg_size = len(segment_dir)
+        candidates = self._one_splitter_cands(kmer, seg_size)
+        if not candidates:
+            return one_sided()
+
+        best_pk = PK_EMPTY
+        best_est = seg_size if seg_size < 16 else seg_size - 16
+        best_rc = False
+        seg_dir_b = segment_dir.astype(np.uint8, copy=False).tobytes()
+        seg_rc_b = segment_rc.astype(np.uint8, copy=False).tobytes()
+
+        if len(candidates) > 2 and self._n_threads > 1:
+            # parallel estimation with a shared shrinking bound -- the
+            # analogue of the reference's incrementing-barrier thread
+            # lending (agc_compressor.cpp:1719-1778); the native estimator
+            # releases the GIL
+            from concurrent.futures import ThreadPoolExecutor
+
+            bound = [best_est]
+            bound_lock = threading.Lock()
+
+            def est_one(cand):
+                c0, c1, is_rc = cand
+                gid = self.map_segments[(c0, c1)]
+                e = self.v_segments[gid].estimate(
+                    seg_rc_b if is_rc else seg_dir_b, bound[0]
+                )
+                # min under a lock: an unguarded check-then-set could
+                # overwrite a tighter bound with a staler, looser one
+                # (selection stays correct either way, but later
+                # estimates would prune less)
+                with bound_lock:
+                    if e < bound[0]:
+                        bound[0] = e
+                return e
+
+            with ThreadPoolExecutor(
+                max_workers=min(self._n_threads, len(candidates))
+            ) as pool:
+                ests = list(pool.map(est_one, candidates))
+        else:
+            ests = []
+            for c0, c1, is_rc in candidates:
+                gid = self.map_segments[(c0, c1)]
+                ests.append(
+                    self.v_segments[gid].estimate(
+                        seg_rc_b if is_rc else seg_dir_b, best_est
+                    )
+                )
+                if ests[-1] < best_est:
+                    best_est = ests[-1]
+
+        best_est = seg_size if seg_size < 16 else seg_size - 16
+        for (c0, c1, is_rc), est in zip(candidates, ests):
+            cand_pk = (c0, c1)
+            if (
+                est < best_est
+                or (est == best_est and cand_pk < best_pk)
+                or (est == best_est and cand_pk == best_pk and not is_rc)
+            ):
+                best_est = est
+                best_pk = cand_pk
+                best_rc = is_rc
+        if best_pk == PK_EMPTY:
+            return one_sided()
+        return best_pk, best_rc
+
+    def _find_missing_middle(
+        self, kmer1: Kmer, kmer2: Kmer, segment_dir: np.ndarray, segment_rc: np.ndarray
+    ) -> tuple[int, int]:
+        """reference: find_cand_segment_with_missing_middle_splitter (1502-1627)."""
+        t1 = self.terminators.get(kmer1.data())
+        t2 = self.terminators.get(kmer2.data())
+        if not t1 or not t2:
+            return EMPTY, 0
+        shared = sorted((set(t1) & set(t2)) - {EMPTY})
+        if not shared:
+            return EMPTY, 0
+        middle = shared[0]
+        gid1 = self.map_segments[
+            (min(kmer1.data(), middle), max(kmer1.data(), middle))
+        ]
+        gid2 = self.map_segments[
+            (min(middle, kmer2.data()), max(middle, kmer2.data()))
+        ]
+        self._ensure_groups_ready((gid1, gid2))
+        seg1 = self.v_segments[gid1]
+        seg2 = self.v_segments[gid2]
+        n = len(segment_dir)
+        if n == 0:
+            return EMPTY, 0
+        # byte views built lazily: each walk reads ONE orientation, so
+        # eagerly rendering both wastes a full-segment copy per call
+        _views: dict[bool, bytes] = {}
+
+        def bview(rc: bool) -> bytes:
+            v = _views.get(rc)
+            if v is None:
+                src = segment_rc if rc else segment_dir
+                v = _views[rc] = src.astype(np.uint8, copy=False).tobytes()
+            return v
+
+        # reference parity: groups still PACKED from appending_init report
+        # ref_size 0 and contribute no cost vector (segment.cpp:103); one
+        # packed side ⇒ length mismatch ⇒ no middle (agc_compressor.cpp:
+        # 1605-1608), both packed ⇒ empty sums ⇒ split position 0
+        e1 = seg1.get_ref_size() == 0
+        e2 = seg2.get_ref_size() == 0
+        if e1 or e2:
+            return (middle, 0) if (e1 and e2) else (EMPTY, 0)
+
+        seg1.ensure_ref()
+        seg2.ensure_ref()
+        lz1, lz2 = seg1.lz, seg2.lz
+        if lz1._ctx is not None and lz2._ctx is not None:
+            # fused native path: both cost walks + cumulative sums +
+            # argmin in one GIL-free call (no intermediate vectors)
+            seg1._ensure_unpacked()
+            seg2._ensure_unpacked()
+            if kmer1.data() < middle:
+                t1, pc1, rev1 = bview(False), 1, 0
+            else:
+                t1, pc1, rev1 = bview(True), 0, 1
+            if middle < kmer2.data():
+                t2, mode2 = bview(False), 0
+            else:
+                t2, mode2 = bview(True), 1
+            best_pos = int(
+                lz1._lib.lz_split_point(
+                    lz1._ctx, t1, pc1, rev1, lz2._ctx, t2, mode2, n
+                )
+            )
+        else:
+            if kmer1.data() < middle:
+                v1 = seg1.get_coding_cost(bview(False), True)
+            else:
+                v1 = seg1.get_coding_cost(bview(True), False)[::-1]
+            v1 = np.cumsum(v1.astype(np.int64))
+
+            if middle < kmer2.data():
+                v2 = seg2.get_coding_cost(bview(False), False).astype(np.int64)
+                v2 = np.cumsum(v2[::-1])[::-1]
+            else:
+                v2 = seg2.get_coding_cost(bview(True), True).astype(np.int64)
+                v2 = np.cumsum(v2)[::-1]
+
+            if len(v1) != len(v2):
+                return EMPTY, 0
+            sums = v1 + v2
+            best_pos = int(np.argmin(sums))
+        if best_pos < self.k + 1:
+            best_pos = 0
+        if best_pos + self.k + 1 > n:
+            best_pos = n
+        return middle, best_pos
+
+
+    # ==================================================================
+    # registration + storage (reference: register_segments/store_segments)
+    # ==================================================================
+
+    def _register_segments(self) -> None:
+        """Assign ids to new groups (deterministic by splitter pair) and
+        merge into the known buffers (reference: process_new,
+        agc_compressor.h:384-415).
+
+        Does NOT join in-flight stores: new groups get fresh ids, members
+        for existing groups queue behind earlier store jobs on the single
+        FIFO worker, and placements are applied at the next join point
+        (metadata batch / estimate-readiness / close) — so barrier stores
+        pipeline across samples instead of serializing each barrier."""
+        if self._buf_new:
+            new_pks = sorted({(k1, k2) for k1, k2, _ in self._buf_new})
+            assigned: dict[tuple[int, int], int] = {}
+            for pk in new_pks:
+                gid = self.no_segments
+                self.no_segments += 1
+                assigned[pk] = gid
+                self.writer.register_stream(ss_ref_name(self.archive_version, gid))
+                self.writer.register_stream(ss_delta_name(self.archive_version, gid))
+                self.v_segments.append(None)
+                prev = self.map_segments.get(pk)
+                if prev is None or prev > gid:
+                    self.map_segments[pk] = gid
+                k1, k2 = pk
+                if k1 != EMPTY and k2 != EMPTY:
+                    lst = self.terminators.setdefault(k1, [])
+                    lst.append(k2)
+                    lst.sort()
+                    if k1 != k2:
+                        lst = self.terminators.setdefault(k2, [])
+                        lst.append(k1)
+                        lst.sort()
+            for k1, k2, pend in self._buf_new:
+                self._buf_known.setdefault(assigned[(k1, k2)], []).append(pend)
+            self._buf_new = []
+
+        # round-robin redistribution of raw group 0 (reference:
+        # distribute_segments, agc_compressor.h:417-435)
+        raw0 = self._buf_known.get(0)
+        if raw0:
+            raw0.sort(key=lambda s: (s.sample, s.contig, s.part_no))
+            keep = []
+            dest = 0
+            for item in raw0:
+                if dest != 0:
+                    self._buf_known.setdefault(dest, []).append(item)
+                else:
+                    keep.append(item)
+                dest = (dest + 1) % NO_RAW_GROUPS
+            self._buf_known[0] = keep
+
+    def _join_pending_store(self) -> None:
+        """Wait for ALL in-flight barrier stores and apply their
+        placements to the collection (in submission order)."""
+        if not self._pending_store:
+            return
+        futures = self._pending_store
+        self._pending_store = None
+        for fut in futures:
+            for args in fut.result():
+                self.collection.add_segment_placed(*args)
+
+    def _join_oldest_store(self) -> None:
+        """Backpressure: land the oldest in-flight store."""
+        if not self._pending_store:
+            return
+        fut = self._pending_store.pop(0)
+        if not self._pending_store:
+            self._pending_store = None
+        for args in fut.result():
+            self.collection.add_segment_placed(*args)
+
+    def _ensure_groups_ready(self, gids) -> None:
+        """Fine-grained store join: estimates only read a group's
+        REFERENCE (member 0) and its match index — both immutable once
+        set — so the pending store must be joined only when a needed
+        group's reference is not there yet (i.e. the group was created at
+        the immediately-preceding barrier). The C++ index build is
+        mutex-guarded, so concurrent estimate/encode on a ready group is
+        safe. Append mode keeps the blanket join (writers rehydrate
+        lazily there)."""
+        if self._pending_store is None:
+            return
+        if self._mode == "append":
+            self._join_pending_store()
+            return
+        for gid in gids:
+            seg = self.v_segments[gid]
+            if seg is None or seg.ref_size == 0:
+                self._join_pending_store()
+                return
+
+    def _store_segments(self, async_ok: bool = False) -> None:
+        """Drain the per-group buffers: LZ-encode + store members, record
+        placements (reference: store_segments, agc_compressor.cpp:974-1050).
+
+        Groups are independent, so they are encoded on a worker pool; the
+        native LZ and zstd calls release the GIL. With ``async_ok`` the
+        jobs run PAST the barrier, overlapping the
+        next sample's device scans; they are joined before anything reads
+        the group writers again (_register_segments / first _add_segment /
+        metadata batches / close). Placements are applied serially (the
+        collection registry is not concurrent)."""
+        buf = self._buf_known
+        self._buf_known = {}
+        groups = sorted(buf)
+
+        def store_group(gid):
+            items = buf[gid]
+            items.sort(key=lambda s: (s.sample, s.contig, s.part_no))
+            seg = self.v_segments[gid]
+            if seg is None:
+                seg = self._make_writer(gid)
+                self.v_segments[gid] = seg
+            placements = []
+            t0 = time.perf_counter()
+            for it in items:
+                data = it.materialize()
+                if gid < NO_RAW_GROUPS:
+                    in_group_id = seg.add_raw(data)
+                else:
+                    in_group_id = seg.add(data)
+                placements.append(
+                    (it.sample, it.contig, it.part_no, gid, in_group_id,
+                     it.is_rc, len(data))
+                )
+            # timer accumulated ONCE per group by the orchestrating
+            # thread's caller (a concurrent += from the pool threads
+            # would lose updates); returned alongside the placements
+            return placements, time.perf_counter() - t0
+
+        use_async = async_ok and bool(groups)
+        if use_async:
+            # pre-set LZ references for groups born this barrier (lazy:
+            # only ref_size is recorded on the main thread; the two
+            # reference copies + LZ prepare run at first use, normally on
+            # the store worker): the matcher can then estimate against
+            # them without joining the in-flight store
+            for gid in groups:
+                if gid >= NO_RAW_GROUPS and self.v_segments[gid] is None:
+                    items = buf[gid]
+                    items.sort(key=lambda s: (s.sample, s.contig, s.part_no))
+                    seg = self._make_writer(gid)
+                    seg.preset_ref_lazy(items[0])
+                    self.v_segments[gid] = seg
+            if self._store_pool is None:
+                from concurrent.futures import ThreadPoolExecutor
+
+                # one worker, one job per barrier: per-group submits would
+                # only add GIL churn (intra-barrier parallelism buys nothing
+                # on a single-core host; the native LZ/zstd calls release
+                # the GIL so the job overlaps the next sample's scans)
+                self._store_pool = ThreadPoolExecutor(max_workers=1)
+
+            def store_all(groups=groups):
+                out = []
+                enc_s = 0.0
+                if (
+                    self._n_threads > 1
+                    and len(groups) > 4
+                    and self._entropy_batcher is None
+                ):
+                    # multi-core host: groups are independent until the
+                    # archive append, and LZ/zstd release the GIL — fan
+                    # the per-group encodes across cores (ordered
+                    # results keep placements deterministic)
+                    from concurrent.futures import (
+                        ThreadPoolExecutor as _TPE,
+                    )
+
+                    with _TPE(max_workers=self._n_threads) as pool:
+                        for placements, dt in pool.map(
+                            store_group, groups
+                        ):
+                            out.extend(placements)
+                            enc_s += dt
+                else:
+                    for g in groups:
+                        placements, dt = store_group(g)
+                        out.extend(placements)
+                        enc_s += dt
+                self.timers.times["store_encode"] += enc_s
+                if self._entropy_batcher is not None:
+                    # one batched device dispatch for this barrier's parts
+                    self._entropy_batcher.flush()
+                return out
+
+            if self._pending_store is None:
+                self._pending_store = []
+            # the job closure holds every buffered segment's bytes until
+            # stored; record the volume so the backlog can be bounded by
+            # BYTES, not barrier count (8 barriers of 500 MB assemblies
+            # held up to 4 GB — part of the round-4 5 Gbase RSS gap).
+            # Computed BEFORE submit: the worker sorts buf[g] in place
+            # and materialize() clears _PendingSeg.raw, so touching the
+            # buffers after submit races the job (size() could observe
+            # data=None then raw=None mid-publish).
+            job_bytes = sum(it.size() for g in groups for it in buf[g])
+            fut = self._store_pool.submit(store_all)
+            fut._agc_bytes = job_bytes
+            self._pending_store.append(fut)
+            # bound the in-flight queue (memory + placement lag)
+            while len(self._pending_store) > 8 or (
+                len(self._pending_store) > 1
+                and sum(
+                    getattr(f, "_agc_bytes", 0)
+                    for f in self._pending_store
+                )
+                > _STORE_BACKLOG_BYTES
+            ):
+                self._join_oldest_store()
+            return
+        if len(groups) > 4 and self._n_threads > 1:
+            from concurrent.futures import ThreadPoolExecutor
+
+            with ThreadPoolExecutor(max_workers=self._n_threads) as pool:
+                results = list(pool.map(store_group, groups))
+        else:
+            results = [store_group(g) for g in groups]
+        if self._entropy_batcher is not None:
+            self._entropy_batcher.flush()
+        for placements, dt in results:
+            self.timers.times["store_encode"] += dt
+            for args in placements:
+                self.collection.add_segment_placed(*args)
+
+    # ==================================================================
+    # finalization (reference: close_compression, store_metadata)
+    # ==================================================================
+
+    def abort(self) -> None:
+        """Best-effort teardown after a failed create/append: stop the
+        store pool, close handles, and REMOVE the partial output — a
+        footerless .agc at the user's path is unreadable but easily
+        mistaken for a finished archive (the reference leaves one
+        behind; we do not)."""
+        if self._closed:
+            return
+        self._closed = True
+        import contextlib
+        import os as _os
+
+        if self._store_pool is not None:
+            with contextlib.suppress(Exception):
+                self._store_pool.shutdown(wait=True, cancel_futures=True)
+        with contextlib.suppress(Exception):
+            self.writer.close()
+        src = getattr(self, "_append_src", None)
+        if src is not None:
+            with contextlib.suppress(Exception):
+                src.close()
+        with contextlib.suppress(Exception):
+            _os.unlink(self.writer._path)
+
+    def close(self) -> bool:
+        if self._closed:
+            return False
+        self._closed = True
+        import time as _time
+
+        _t_close = _time.perf_counter()
+        self._ensure_splitters()
+        self._join_pending_store()
+        # finalize partial packs on the store worker while this thread
+        # serializes the remaining metadata (zstd releases the GIL)
+        live = [seg for seg in self.v_segments if seg is not None]
+        finish_fut = None
+        if self._store_pool is not None and live:
+            def finish_all():
+                for seg in live:
+                    seg.finish()
+                if self._entropy_batcher is not None:
+                    self._entropy_batcher.flush()
+
+            finish_fut = self._store_pool.submit(finish_all)
+        else:
+            for seg in live:
+                seg.finish()
+            if self._entropy_batcher is not None:
+                self._entropy_batcher.flush()
+
+        # earlier metadata batches were compressed on the same worker
+        # queue; their parts must land before the partial batch below
+        for fut in self._pending_meta:
+            fut.result()
+        self._pending_meta = []
+
+        if self.archive_version >= 3000:
+            # remaining partial metadata batch
+            ps = self.processed_samples
+            if ps % self.p.pack_cardinality != 0:
+                self.collection.store_contig_batch(
+                    self.writer,
+                    (ps // self.p.pack_cardinality) * self.p.pack_cardinality,
+                    ps,
+                )
+            self._store_metadata()
+            self.collection.complete_serialization(self.writer)
+        else:
+            # legacy formats re-serialize the whole collection at close
+            # (reference: store_metadata_impl_v1/v2, agc_compressor.cpp:
+            # 81-168; zstd levels 19 / 15+19)
+            from agc_tpu.core.segment import _zstd_level
+
+            self._store_metadata()
+            if self.archive_version < 2000:
+                blob = self.collection.serialize_v1()
+                self.writer.add_part(
+                    "collection-desc", _zstd_level(19).compress(blob), len(blob)
+                )
+            else:
+                main, details = self.collection.serialize_v2(
+                    self.p.pack_cardinality * 5
+                )
+                self.writer.add_part(
+                    "collection-main", _zstd_level(15).compress(main), len(main)
+                )
+                for det in details:
+                    self.writer.add_part(
+                        "collection-details",
+                        _zstd_level(19).compress(det),
+                        len(det),
+                    )
+        if finish_fut is not None:
+            finish_fut.result()
+        if self._store_pool is not None:
+            self._store_pool.shutdown(wait=True)
+            self._store_pool = None
+        self.writer.flush_buffers()
+        if self.p.verbosity > 0:
+            # all parts (incl. async-finished packs and buffered writes)
+            # have landed; stream sizes are final now
+            self._print_component_sizes()
+        self._store_file_type_info()
+        self.writer.close()
+        if self._mode == "append":
+            self._append_src.close()
+        if self.p.verbosity > 0:
+
+            self.timers.times["close_finalize"] += (
+                _time.perf_counter() - _t_close
+            )
+            print(self.timers.report(), file=sys.stderr)
+        return True
+
+    def _store_metadata(self) -> None:
+        """reference: store_metadata (agc_compressor.cpp:175-284)."""
+        params = bytearray()
+        params += fixed_u32(self.k)
+        params += fixed_u32(self.p.min_match_len)
+        params += fixed_u32(self.p.pack_cardinality)
+        if self.archive_version >= 2000:
+            # format 1.x has no segment_size field (agc_compressor.cpp:213)
+            params += fixed_u32(self.p.segment_size)
+        self.writer.add_part("params", bytes(params), 0)
+
+        v_tmp = bytearray()
+        splitters_sorted = sorted(self._splitter_set)
+        for x in splitters_sorted:
+            v_tmp += fixed_u64(x)
+        self.writer.add_part("splitters", bytes(v_tmp), len(splitters_sorted))
+
+        v_tmp = bytearray()
+        entries = sorted(self.map_segments.items())
+        for (k1, k2), gid in entries:
+            v_tmp += fixed_u64(k1)
+            v_tmp += fixed_u64(k2)
+            v_tmp += fixed_u32(gid)
+        self.writer.add_part("segment-splitters", bytes(v_tmp), len(entries))
+
+    def _print_component_sizes(self) -> None:
+        """Verbose component-size breakdown (reference: store_metadata,
+        agc_compressor.cpp:254-283)."""
+
+        w = self.writer
+        av = self.archive_version
+        total_ref = total_delta = total_only_ref = 0
+        n_only_ref = 0
+        n_one_side = sum(
+            1 for (k1, k2) in self.map_segments if k1 == EMPTY or k2 == EMPTY
+        )
+        for gid in range(self.no_segments):
+            rs = w.stream_packed_size(ss_ref_name(av, gid))
+            ds = w.stream_packed_size(ss_delta_name(av, gid))
+            total_ref += rs
+            total_delta += ds
+            if w.n_parts(ss_delta_name(av, gid)) == 0:
+                n_only_ref += 1
+                total_only_ref += rs
+        total_raw = sum(
+            w.stream_packed_size(ss_delta_name(av, g)) for g in range(NO_RAW_GROUPS)
+        )
+        err = sys.stderr
+        print("*** Component sizes ***", file=err)
+        print(f"Reference sequences    : {total_ref}", file=err)
+        print(f"   (only ref)          : {total_only_ref}", file=err)
+        print(f"Raw sequences          : {total_raw}", file=err)
+        print(f"Delta sequences        : {total_delta - total_raw}", file=err)
+        print(
+            f"Params                 : {w.stream_packed_size('params')}", file=err
+        )
+        print(
+            f"Splitters              : {w.stream_packed_size('splitters')}",
+            file=err,
+        )
+        print(
+            "Segment splitters      : "
+            f"{w.stream_packed_size('segment-splitters')}",
+            file=err,
+        )
+        coll = sum(
+            w.stream_packed_size(s)
+            for s in (
+                "collection-samples",
+                "collection-contigs",
+                "collection-details",
+            )
+        )
+        print(f"Collection desc.       : {coll}", file=err)
+        print("*** Stats ***", file=err)
+        print(f"No. segments           : {self.no_segments}", file=err)
+        print(f"No. one-side segments  : {n_one_side}", file=err)
+        print(f"No. only ref. segments : {n_only_ref}", file=err)
+
+    def _store_file_type_info(self) -> None:
+        v = bytearray()
+        for key in sorted(self.file_type_info):
+            v += key.encode() + b"\x00"
+            v += self.file_type_info[key].encode() + b"\x00"
+        self.writer.add_part("file_type_info", bytes(v), len(self.file_type_info))
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        self.close()
+
+
+# ---------------------------------------------------------------------------
+# high-level entry points (parity with CLI create/append)
+# ---------------------------------------------------------------------------
+
+
+def create_archive(
+    out_path: str,
+    input_files: list[str],
+    params: CompressorParams | None = None,
+    cmd_line: str | None = None,
+    device="cuda",
+) -> None:
+    """``agc create``: first input is the reference (reference:
+    main.cpp:76-120); device work runs on ``device``."""
+    # de-duplicate, preserving order (reference: sanitize_input_file_names)
+    seen = set()
+    files = [f for f in input_files if not (f in seen or seen.add(f))]
+    with device_trace("create"):
+        comp = Compressor(
+            out_path, params, reference_file=files[0], device=device
+        )
+        try:
+            if cmd_line:
+                comp.add_cmd_line(cmd_line)
+            sample_files = [(sample_name_from_path(f), f) for f in files]
+            comp.add_sample_files(sample_files)
+            comp.close()
+        except BaseException:
+            comp.abort()
+            raise
+
+
+def append_archive(
+    in_path: str,
+    out_path: str,
+    input_files: list[str],
+    params: CompressorParams | None = None,
+    cmd_line: str | None = None,
+    device="cuda",
+) -> None:
+    """``agc append``: add samples to ``in_path``, writing ``out_path``."""
+    seen = set()
+    files = [f for f in input_files if not (f in seen or seen.add(f))]
+    with device_trace("append"):
+        comp = Compressor(out_path, params, in_path=in_path, device=device)
+        try:
+            if cmd_line:
+                comp.add_cmd_line(cmd_line)
+            sample_files = [(sample_name_from_path(f), f) for f in files]
+            comp.add_sample_files(sample_files)
+            comp.close()
+        except BaseException:
+            comp.abort()
+            raise

@@ -1,0 +1,297 @@
+"""The port's k-mer kernels: CUDA wrappers and their plain PyTorch versions.
+
+Counterpart of ``agc_tpu/ops/pallas_kmers.py``. Three kernels, each in
+``agc_tpu_torch/csrc`` with a source note on what it replaces, what
+bounds it on the H100 and what its design does about that:
+
+- ``scan_fused``  (csrc/scan_fused.cu): the whole ``scan_batch_compact_p4``
+  (unpack, direct-code ladder, XOR-mix, table membership, hit compaction);
+  replaces the Pallas ``scan_fused_pallas`` plus the XLA unpack and top_k.
+- ``kmer_canon``  (csrc/kmer_canon.cu): the canonical pool fill of
+  splitter discovery; replaces the Pallas ``kmer_halves_pallas`` /
+  ``kmer_core_via_pallas`` plus the ``canon_rows_p4`` epilogue.
+- ``greedy_walk`` (csrc/greedy_walk.cu): the singleton greedy splitter
+  walk; replaces the XLA ``lax.while_loop`` ``_greedy_over_canon``.
+
+A wrapper runs its plain version only for tensors on the CPU. For CUDA
+tensors it launches the kernel, or raises: nothing falls back. Each
+wrapper counts its kernel launches in ``LAUNCHES`` (reset with
+``reset_launches``), so a run can show it went through the kernels.
+
+Conventions (``ops/u64.py``): k-mer codes are int64 with bit 63 flipped
+(``SENTINEL`` = INT64_MAX); 32-bit words are int32 bit patterns.
+"""
+
+from __future__ import annotations
+
+import threading
+
+import numpy as np
+import torch
+
+from . import _build
+from . import u64
+
+# positions per block of the rolling kernels: kThreads * kPerThread in
+# csrc/kmer_common.cuh
+_TILE = 256 * 32
+_MAX_TABLE = 16384  # shared-memory table limit of scan_fused (64 KB)
+
+LAUNCHES = {"scan_fused": 0, "kmer_canon": 0, "greedy_walk": 0}
+_launch_lock = threading.Lock()
+
+
+def reset_launches() -> None:
+    with _launch_lock:
+        for name in LAUNCHES:
+            LAUNCHES[name] = 0
+
+
+def _count(name: str) -> None:
+    with _launch_lock:
+        LAUNCHES[name] += 1
+
+
+def _require(cond: bool, msg: str) -> None:
+    if not cond:
+        raise ValueError(msg)
+
+
+def _stream(t: torch.Tensor) -> int:
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def _check_cuda(name: str, *tensors: torch.Tensor) -> None:
+    for t in tensors:
+        _require(t.is_cuda, f"{name}: every tensor must be on the same CUDA device")
+        _require(t.is_contiguous(), f"{name}: tensors must be contiguous")
+        _require(t.device == tensors[0].device, f"{name}: mixed devices")
+
+
+# ---------------------------------------------------------------------------
+# shared plain building blocks
+# ---------------------------------------------------------------------------
+
+
+def unpack4(packed: torch.Tensor) -> torch.Tensor:
+    """Nibble unpack: u8[..., m] -> u8[..., 2m] symbols (15 = invalid)."""
+    lo = packed & 15
+    hi = packed >> 4
+    return torch.stack([lo, hi], dim=-1).reshape(*packed.shape[:-1], -1)
+
+
+def rolling_codes(codes: torch.Tensor, k: int, with_rc: bool):
+    """Unshifted per-position codes of the window ending at each position,
+    as int64 bit patterns: dir = sum_t sym[i-t] * 4^t and (optionally)
+    rc = sum_t (3 - sym[i-t]) * 4^(k-1-t). Invalid symbols count as 0;
+    codes at invalid windows are meaningless (see ``valid_windows``)."""
+    n = codes.shape[-1]
+    sym = torch.where(codes > 3, 0, codes).to(torch.int64)
+    d = torch.zeros_like(sym)
+    r = torch.zeros_like(sym) if with_rc else None
+    for t in range(min(k, n)):
+        src = sym[..., : n - t]
+        d[..., t:] |= src << (2 * t)
+        if with_rc:
+            r[..., t:] |= (3 - src) << (2 * (k - 1 - t))
+    return d, r
+
+
+def valid_windows(codes: torch.Tensor, k: int) -> torch.Tensor:
+    """True where the k-window ending at a position holds k valid symbols
+    inside the row (the ``valid`` of agc_tpu's ``_dir_halves``)."""
+    n = codes.shape[-1]
+    csum = torch.cumsum((codes > 3).to(torch.int32), dim=-1)
+    shifted = torch.zeros_like(csum)
+    if n > k:
+        shifted[..., k:] = csum[..., : n - k]
+    idx = torch.arange(n, device=codes.device)
+    return (csum == shifted) & (idx >= k - 1)
+
+
+def dir_halves(codes: torch.Tensor, k: int):
+    """(dlo, dhi, valid): the direct code's 32-bit halves as int32 bit
+    patterns (lo = the 16 most recent symbols) and the valid flag."""
+    d, _ = rolling_codes(codes, k, with_rc=False)
+    return u64.low32(d), u64.high32(d), valid_windows(codes, k)
+
+
+# ---------------------------------------------------------------------------
+# scan_fused
+# ---------------------------------------------------------------------------
+
+
+def _hits_out(member, dlo, dhi, cap: int) -> torch.Tensor:
+    """[count, pos[cap] ascending with leading fills, dlo[cap], dhi[cap]]
+    per row; the last cap hits when count > cap; fills are pos = -1 and
+    dlo = dhi = 0."""
+    b, n = member.shape
+    count = member.sum(dim=1, dtype=torch.int64)
+    iota = torch.arange(n, device=member.device, dtype=torch.int64)
+    keyed = torch.where(member, iota.expand(b, n), -1)
+    pos = torch.topk(keyed, cap, dim=1).values.flip(1)
+    safe = pos.clamp(min=0)
+    fill = pos < 0
+    lo = torch.where(fill, 0, dlo.gather(1, safe))
+    hi = torch.where(fill, 0, dhi.gather(1, safe))
+    return torch.cat(
+        [count[:, None].to(torch.int32), pos.to(torch.int32), lo, hi], dim=1
+    )
+
+
+def scan_fused_plain(packed2d: torch.Tensor, k: int, table: torch.Tensor,
+                     cap: int) -> torch.Tensor:
+    """Plain version of ``scan_fused`` (agc_tpu's scan_batch_compact_p4)."""
+    codes = unpack4(packed2d)
+    dlo, dhi, valid = dir_halves(codes, k)
+    member = valid & torch.isin(dlo ^ dhi, table)
+    return _hits_out(member, dlo, dhi, cap)
+
+
+def scan_fused(packed2d: torch.Tensor, k: int, table: torch.Tensor,
+               cap: int) -> torch.Tensor:
+    """Batched membership scan of nibble-packed rows.
+
+    packed2d: uint8[B, n/2]; table: int32[T] XOR-mix table, sorted by
+    unsigned value (``ScanTable.tmix``), T <= 16384; returns
+    int32[B, 1 + 3 * cap] hit vectors, agc_tpu's ``_scan_compact_body``
+    layout."""
+    _require(packed2d.dim() == 2 and packed2d.dtype == torch.uint8,
+             "scan_fused: packed2d must be uint8[B, n/2]")
+    _require(table.dtype == torch.int32 and table.dim() == 1,
+             "scan_fused: table must be int32[T]")
+    _require(1 <= k <= 32, "scan_fused: k must be in [1, 32]")
+    b, half = packed2d.shape
+    _require(1 <= cap <= 2 * half, "scan_fused: cap must be in [1, n]")
+    if packed2d.device.type == "cpu":
+        return scan_fused_plain(packed2d, k, table, cap)
+    _check_cuda("scan_fused", packed2d, table)
+    t = table.numel()
+    _require(1 <= t <= _MAX_TABLE, f"scan_fused: table size {t} not in [1, {_MAX_TABLE}]")
+    _require(2 * half < (1 << 31), "scan_fused: rows must be < 2^31 positions")
+    n_tiles = -(-2 * half // _TILE)
+    scratch = torch.empty(2 * b * n_tiles, dtype=torch.int32, device=packed2d.device)
+    out = torch.empty((b, 1 + 3 * cap), dtype=torch.int32, device=packed2d.device)
+    with torch.cuda.device(packed2d.device):
+        rc = _build.lib().agc_scan_fused(
+            packed2d.data_ptr(), b, half, k, table.data_ptr(), t, cap,
+            scratch.data_ptr(), out.data_ptr(), _stream(packed2d),
+        )
+    _build.check(rc, "scan_fused")
+    _count("scan_fused")
+    return out
+
+
+# ---------------------------------------------------------------------------
+# kmer_canon
+# ---------------------------------------------------------------------------
+
+
+def kmer_canon_plain(packed2d: torch.Tensor, k: int) -> torch.Tensor:
+    """Plain version of ``kmer_canon``."""
+    codes = unpack4(packed2d)
+    d, r = rolling_codes(codes, k, with_rc=True)
+    sh = 64 - 2 * k
+    canon = torch.minimum(u64.flip(d << sh), u64.flip(r << sh))
+    return torch.where(valid_windows(codes, k), canon, u64.SENTINEL)
+
+
+def kmer_canon(packed2d: torch.Tensor, k: int) -> torch.Tensor:
+    """Canonical k-mer per position of nibble-packed rows.
+
+    packed2d: uint8[B, n/2]; returns int64[B, n], the flipped
+    left-aligned ``min(dir, rc)`` where the window is valid and
+    ``SENTINEL`` elsewhere."""
+    _require(packed2d.dim() == 2 and packed2d.dtype == torch.uint8,
+             "kmer_canon: packed2d must be uint8[B, n/2]")
+    _require(1 <= k <= 32, "kmer_canon: k must be in [1, 32]")
+    if packed2d.device.type == "cpu":
+        return kmer_canon_plain(packed2d, k)
+    _check_cuda("kmer_canon", packed2d)
+    b, half = packed2d.shape
+    out = torch.empty((b, 2 * half), dtype=torch.int64, device=packed2d.device)
+    with torch.cuda.device(packed2d.device):
+        rc = _build.lib().agc_kmer_canon(
+            packed2d.data_ptr(), b, half, k, out.data_ptr(), _stream(packed2d)
+        )
+    _build.check(rc, "kmer_canon")
+    _count("kmer_canon")
+    return out
+
+
+# ---------------------------------------------------------------------------
+# greedy_walk
+# ---------------------------------------------------------------------------
+
+
+def greedy_walk_plain(canon, starts, n_reals, pool, seg: int,
+                      cap: int) -> torch.Tensor:
+    """Plain version of ``greedy_walk``: the singleton mask of a whole
+    contig by ``searchsorted``, then the greedy selection on the host."""
+    c = starts.numel()
+    out = torch.zeros((c, 3 + 2 * cap), dtype=torch.int64)
+    p_len = pool.numel()
+    starts_h = starts.cpu().tolist()
+    reals_h = n_reals.cpu().tolist()
+    for i in range(c):
+        n = int(reals_h[i])
+        v = canon[starts_h[i] : starts_h[i] + n]
+        hit = torch.zeros(n, dtype=torch.bool, device=canon.device)
+        if n and p_len:
+            ix = torch.searchsorted(pool, v)
+            at = pool[ix.clamp(max=p_len - 1)]
+            nxt = pool[(ix + 1).clamp(max=p_len - 1)]
+            hit = (at == v) & (v != u64.SENTINEL) & ((nxt != v) | (ix + 1 >= p_len))
+        hp = torch.nonzero(hit).flatten().cpu().numpy()
+        vals = v.cpu()
+        pos = []
+        t = 0
+        while len(pos) < cap:
+            j = int(np.searchsorted(hp, t))
+            if j == len(hp):
+                break
+            pos.append(int(hp[j]))
+            t = pos[-1] + seg
+        out[i, 0] = len(pos)
+        if pos:
+            pt = torch.tensor(pos, dtype=torch.int64)
+            out[i, 1 : 1 + len(pos)] = pt
+            out[i, 1 + cap : 1 + cap + len(pos)] = vals[pt]
+        if len(hp):
+            out[i, 1 + 2 * cap] = int(hp[-1])
+            out[i, 2 + 2 * cap] = vals[int(hp[-1])]
+        else:
+            out[i, 1 + 2 * cap] = u64.SENTINEL
+    return out.to(canon.device)
+
+
+def greedy_walk(canon: torch.Tensor, starts: torch.Tensor,
+                n_reals: torch.Tensor, pool: torch.Tensor, seg: int,
+                cap: int) -> torch.Tensor:
+    """Greedy singleton splitter walk, one contig per (start, n_real).
+
+    canon: int64[N] flipped canonical codes; starts, n_reals: int64[C];
+    pool: sorted int64[P] (the whole k-mer pool); returns
+    int64[C, 3 + 2 * cap] = [count, pos[cap], kmer[cap], tail_pos,
+    tail_kmer] per contig (unused slots 0; tail_pos INT64_MAX when the
+    contig has no singleton)."""
+    for name, t in (("canon", canon), ("starts", starts),
+                    ("n_reals", n_reals), ("pool", pool)):
+        _require(t.dim() == 1 and t.dtype == torch.int64,
+                 f"greedy_walk: {name} must be int64[...]")
+    _require(starts.numel() == n_reals.numel(), "greedy_walk: starts/n_reals differ")
+    _require(seg >= 1 and cap >= 1, "greedy_walk: seg and cap must be >= 1")
+    if canon.device.type == "cpu":
+        return greedy_walk_plain(canon, starts, n_reals, pool, seg, cap)
+    _check_cuda("greedy_walk", canon, starts, n_reals, pool)
+    c = starts.numel()
+    out = torch.zeros((c, 3 + 2 * cap), dtype=torch.int64, device=canon.device)
+    with torch.cuda.device(canon.device):
+        rc = _build.lib().agc_greedy_walk(
+            canon.data_ptr(), starts.data_ptr(), n_reals.data_ptr(), c,
+            pool.data_ptr(), pool.numel(), seg, cap, out.data_ptr(),
+            _stream(canon),
+        )
+    _build.check(rc, "greedy_walk")
+    _count("greedy_walk")
+    return out
