@@ -1,14 +1,13 @@
 """Minimal ``zstandard`` stand-in over the system ``libzstd.so.1`` (ctypes).
 
-The host modules that the port imports from ``agc_tpu.core`` use exactly
-two call shapes of the ``zstandard`` package:
+The port's host modules (``core/segment.py``, ``core/collection.py``) use
+exactly two call shapes of the ``zstandard`` package:
 
     zstandard.ZstdCompressor(level=L).compress(data)
     zstandard.ZstdDecompressor().decompressobj().decompress(data)
 
-This module provides those two shapes and nothing else. The package
-registers it as ``sys.modules["zstandard"]`` only when the real package
-cannot be imported (see ``agc_tpu_torch/__init__.py``). Both write and
+This module provides those two shapes and nothing else. ``core/zstd.py``
+uses it only when the real package cannot be imported. Both write and
 read standard zstd frames, so archives stay readable by either.
 """
 

@@ -1,8 +1,9 @@
-"""Engine of the port (``compressor``). The archive container and the
-decompressor are host code shared with agc_tpu; they are re-exported here
-so that callers of the port read archives through one package."""
+"""Host layers and engine of the port: the archive container, the
+collection, segments, LZ, zstd, FASTA IO, the decompressor and the
+compressor. ``ArchiveReader`` and ``Decompressor`` are re-exported so that
+callers read archives through one package."""
 
-from agc_tpu.core.archive import ArchiveReader
-from agc_tpu.core.decompressor import Decompressor
+from .archive import ArchiveReader
+from .decompressor import Decompressor
 
 __all__ = ["ArchiveReader", "Decompressor"]

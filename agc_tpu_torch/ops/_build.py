@@ -1,9 +1,10 @@
 """Build and load the port's CUDA kernels (``agc_tpu_torch/csrc``).
 
-All ``*.cu`` sources are compiled by ``nvcc`` for ``sm_90a`` into one
-shared library with a plain C interface, loaded with ctypes. The library
-lives under ``build/agc_tpu_torch/`` beside the package, named by a hash
-of the sources, and is built at first use: importing this module builds
+Each ``*.cu`` source is compiled by its own ``nvcc`` for ``sm_90a``, all
+of them at once, and the objects are linked into one shared library with
+a plain C interface, loaded with ctypes. The library lives under
+``build/agc_tpu_torch/`` beside the package, named by a hash of the
+sources, and is built at first use: importing this module builds
 nothing. ``nvcc``'s ``-Xptxas -v`` report (registers, shared memory,
 spills per kernel) is kept in ``build.log`` next to it.
 """
@@ -50,26 +51,49 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
 
 
+def _run_all(cmds: list[list[str]]) -> list[tuple[int, str]]:
+    """Start every command at once; (returncode, output) of each."""
+    procs = [
+        subprocess.Popen(c, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for c in cmds
+    ]
+    outs = [p.communicate(timeout=900)[0] for p in procs]
+    return [(p.returncode, o) for p, o in zip(procs, outs)]
+
+
 def build() -> Path:
     """Compile the kernels unless a library for these sources exists."""
     out = BUILD_DIR / f"libagc_kernels_{_digest()}.so"
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [
-        _nvcc(), *ARCH_FLAGS, "-std=c++17", "-O3", "-shared",
-        "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-o", str(tmp),
-        *[str(p) for p in sorted(CSRC.glob("*.cu"))],
+    tag = f"{_digest()}.{os.getpid()}"
+    nvcc = _nvcc()
+    sources = sorted(CSRC.glob("*.cu"))
+    objs = [BUILD_DIR / f"{p.stem}.{tag}.o" for p in sources]
+    compile_cmds = [
+        [nvcc, *ARCH_FLAGS, "-std=c++17", "-O3", "-c", "-Xcompiler", "-fPIC",
+         "-Xptxas", "-v", "-o", str(o), str(p)]
+        for p, o in zip(sources, objs)
     ]
-    res = subprocess.run(cmd, capture_output=True, text=True, timeout=900)
-    (BUILD_DIR / "build.log").write_text(
-        " ".join(cmd) + "\n" + res.stdout + res.stderr
-    )
-    if res.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed ({res.returncode}):\n{res.stderr[-4000:]}"
-        )
+    log = []
+    failed = []
+    for cmd, (rc, text) in zip(compile_cmds, _run_all(compile_cmds)):
+        log.append(" ".join(cmd) + "\n" + text)
+        if rc != 0:
+            failed.append(text)
+    tmp = out.with_suffix(f".{os.getpid()}.tmp")
+    if not failed:
+        link = [nvcc, *ARCH_FLAGS, "-shared", "-o", str(tmp), *map(str, objs)]
+        rc, text = _run_all([link])[0]
+        log.append(" ".join(link) + "\n" + text)
+        if rc != 0:
+            failed.append(text)
+    (BUILD_DIR / "build.log").write_text("\n".join(log))
+    for o in objs:
+        o.unlink(missing_ok=True)
+    if failed:
+        raise RuntimeError("nvcc failed:\n" + "\n".join(t[-4000:] for t in failed))
     os.replace(tmp, out)
     return out
 
@@ -81,7 +105,11 @@ def _bind(lib) -> None:
     ]
     lib.agc_kmer_canon.argtypes = [vp, i64, i64, i32, vp, vp]
     lib.agc_greedy_walk.argtypes = [vp, vp, vp, i64, vp, i64, i64, i32, vp, vp]
-    for fn in (lib.agc_scan_fused, lib.agc_kmer_canon, lib.agc_greedy_walk):
+    lib.agc_member_mix.argtypes = [vp, i64, vp, i32, vp, vp]
+    lib.agc_member_mix_shared_max.argtypes = []
+    lib.agc_dir_mix.argtypes = [vp, i64, i64, i32, vp, vp, vp, vp]
+    for fn in (lib.agc_scan_fused, lib.agc_kmer_canon, lib.agc_greedy_walk,
+               lib.agc_member_mix, lib.agc_member_mix_shared_max, lib.agc_dir_mix):
         fn.restype = ctypes.c_int
     lib.agc_cuda_error_string.argtypes = [ctypes.c_int]
     lib.agc_cuda_error_string.restype = ctypes.c_char_p

@@ -1,6 +1,6 @@
 """The port's k-mer kernels: CUDA wrappers and their plain PyTorch versions.
 
-Counterpart of ``agc_tpu/ops/pallas_kmers.py``. Three kernels, each in
+Counterpart of ``agc_tpu/ops/pallas_kmers.py``. Five kernels, each in
 ``agc_tpu_torch/csrc`` with a source note on what it replaces, what
 bounds it on the H100 and what its design does about that:
 
@@ -12,6 +12,12 @@ bounds it on the H100 and what its design does about that:
   ``kmer_core_via_pallas`` plus the ``canon_rows_p4`` epilogue.
 - ``greedy_walk`` (csrc/greedy_walk.cu): the singleton greedy splitter
   walk; replaces the XLA ``lax.while_loop`` ``_greedy_over_canon``.
+- ``member_mix``  (csrc/member_mix.cu): membership of precomputed XOR-mixes
+  in a sorted mix table; replaces the Pallas ``member_mix_pallas``, and is
+  the membership stage of the large-table join.
+- ``dir_mix``     (csrc/dir_mix.cu): the direct code's 32-bit halves and
+  the valid flag per position, which the large-table join reads; replaces
+  the XLA ``_dir_halves`` ladder of ``scan_batch_join_global_p4``.
 
 A wrapper runs its plain version only for tensors on the CPU. For CUDA
 tensors it launches the kernel, or raises: nothing falls back. Each
@@ -37,7 +43,8 @@ from . import u64
 _TILE = 256 * 32
 _MAX_TABLE = 16384  # shared-memory table limit of scan_fused (64 KB)
 
-LAUNCHES = {"scan_fused": 0, "kmer_canon": 0, "greedy_walk": 0}
+LAUNCHES = {"scan_fused": 0, "kmer_canon": 0, "greedy_walk": 0,
+            "member_mix": 0, "dir_mix": 0}
 _launch_lock = threading.Lock()
 
 
@@ -295,3 +302,84 @@ def greedy_walk(canon: torch.Tensor, starts: torch.Tensor,
     _build.check(rc, "greedy_walk")
     _count("greedy_walk")
     return out
+
+
+# ---------------------------------------------------------------------------
+# member_mix
+# ---------------------------------------------------------------------------
+
+
+def member_mix_plain(mix: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
+    """Plain version of ``member_mix``: a binary search of the table
+    (``searchsorted`` on the unsigned values widened to int64)."""
+    t = table.to(torch.int64) & u64.M32
+    m = mix.to(torch.int64) & u64.M32
+    if t.numel() == 0:
+        return torch.zeros(m.shape, dtype=torch.bool, device=mix.device)
+    ix = torch.searchsorted(t, m).clamp(max=t.numel() - 1)
+    return t[ix] == m
+
+
+def member_mix(mix: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
+    """member[i] = mix[i] in table.
+
+    mix: int32[N] (u32 bit patterns); table: int32[T] sorted by unsigned
+    value (``ScanTable.tmix``); returns bool[N]. The kernel holds the
+    table in shared memory when it fits (up to the library's
+    ``agc_member_mix_shared_max()`` entries) and searches it in device
+    memory above."""
+    _require(mix.dtype == torch.int32 and mix.dim() == 1,
+             "member_mix: mix must be int32[N]")
+    _require(table.dtype == torch.int32 and table.dim() == 1,
+             "member_mix: table must be int32[T]")
+    if mix.device.type == "cpu":
+        return member_mix_plain(mix, table)
+    _check_cuda("member_mix", mix, table)
+    t = table.numel()
+    _require(1 <= t < (1 << 31), f"member_mix: table size {t} not in [1, 2^31)")
+    out = torch.empty(mix.shape, dtype=torch.bool, device=mix.device)
+    with torch.cuda.device(mix.device):
+        rc = _build.lib().agc_member_mix(
+            mix.data_ptr(), mix.numel(), table.data_ptr(), t, out.data_ptr(),
+            _stream(mix),
+        )
+    _build.check(rc, "member_mix")
+    _count("member_mix")
+    return out
+
+
+# ---------------------------------------------------------------------------
+# dir_mix
+# ---------------------------------------------------------------------------
+
+
+def dir_mix_plain(packed2d: torch.Tensor, k: int):
+    """Plain version of ``dir_mix``: ``dir_halves`` of the unpacked rows."""
+    return dir_halves(unpack4(packed2d), k)
+
+
+def dir_mix(packed2d: torch.Tensor, k: int):
+    """(dlo, dhi, valid) per position of nibble-packed rows.
+
+    packed2d: uint8[B, n/2]; returns int32[B, n] halves of the direct code
+    (u32 bit patterns, lo = the 16 most recent symbols) and bool[B, n],
+    equal to ``dir_halves`` at every position, invalid ones included."""
+    _require(packed2d.dim() == 2 and packed2d.dtype == torch.uint8,
+             "dir_mix: packed2d must be uint8[B, n/2]")
+    _require(1 <= k <= 32, "dir_mix: k must be in [1, 32]")
+    if packed2d.device.type == "cpu":
+        return dir_mix_plain(packed2d, k)
+    _check_cuda("dir_mix", packed2d)
+    b, half = packed2d.shape
+    dev = packed2d.device
+    dlo = torch.empty((b, 2 * half), dtype=torch.int32, device=dev)
+    dhi = torch.empty((b, 2 * half), dtype=torch.int32, device=dev)
+    valid = torch.empty((b, 2 * half), dtype=torch.bool, device=dev)
+    with torch.cuda.device(dev):
+        rc = _build.lib().agc_dir_mix(
+            packed2d.data_ptr(), b, half, k, dlo.data_ptr(), dhi.data_ptr(),
+            valid.data_ptr(), _stream(packed2d),
+        )
+    _build.check(rc, "dir_mix")
+    _count("dir_mix")
+    return dlo, dhi, valid

@@ -5,10 +5,10 @@
 are copied here unchanged: ``_revcomp_np``, ``dir_rc_kmers_np``,
 ``pack4_np``, the scan-vector decoders,
 ``ScanTable`` / ``make_scan_table``, ``scan_members_host`` and
-``DaemonPool``. The device programs are PyTorch: the membership scan and
-discovery go through the CUDA kernels of ``cuda_kmers`` on CUDA tensors
-and through their plain versions on CPU tensors; the large-table join is
-plain torch ops on either device.
+``DaemonPool``. The device programs are PyTorch: the membership scans
+(compare-all and large-table join) and discovery (full pool and
+value-sampled) go through the CUDA kernels of ``cuda_kmers`` on CUDA
+tensors and through their plain versions on CPU tensors.
 
 K-mer value convention (the reference's, so splitter sets are
 interchangeable with reference archives): the canonical code is
@@ -29,12 +29,10 @@ import time
 import numpy as np
 import torch
 
-from agc_tpu.native import get_lib
+from ..native import get_lib
 
 from . import u64
-from .cuda_kmers import dir_halves as _dir_halves
-from .cuda_kmers import greedy_walk, kmer_canon, scan_fused
-from .cuda_kmers import unpack4 as _unpack4_dev
+from .cuda_kmers import dir_mix, greedy_walk, kmer_canon, member_mix, scan_fused
 
 
 def _shift_for(k: int) -> int:
@@ -157,7 +155,7 @@ def _decode_scan_vec_global(vec: np.ndarray, cap: int, table: "ScanTable",
     return count, gpos // n_per_row, gpos % n_per_row, udir, urc
 
 
-# tables with more entries than this use the sort-merge join
+# tables with more entries than this are 'join' tables
 _COMPARE_ALL_MAX = 8192
 
 
@@ -165,22 +163,22 @@ class ScanTable:
     """Membership table for the scan programs, resident on ``device``.
 
     kind 'cmp': unique XOR-mixes of both orientations' halves, padded to
-    a power of two (min 128) and SORTED by unsigned value (``tmix``,
-    int32 bit patterns) for the scan kernel's binary search.
-    kind 'join': (hi, lo) half pairs of both orientations for the
-    sort-merge join (large splitter sets), power-of-two padded.
+    a power of two (min 128), for the fused scan kernel.
+    kind 'join': the XOR-mixes ``hi ^ lo`` of agc_tpu's (hi, lo) half
+    pairs of both orientations (large splitter sets), power-of-two padded
+    (min 16384), for the join's member_mix.
+    Both are SORTED by unsigned value (``tmix``, int32 bit patterns) for
+    the kernels' binary search.
     canon_np: the sorted host canonical array, for exact verification.
     """
 
-    __slots__ = ("kind", "k", "canon_np", "tmix", "thi", "tlo")
+    __slots__ = ("kind", "k", "canon_np", "tmix")
 
-    def __init__(self, kind, k, canon_np, tmix=None, thi=None, tlo=None):
+    def __init__(self, kind, k, canon_np, tmix):
         self.kind = kind
         self.k = k
         self.canon_np = canon_np
         self.tmix = tmix
-        self.thi = thi
-        self.tlo = tlo
 
 
 def make_scan_table(sorted_u64, k: int, device="cpu"):
@@ -206,7 +204,7 @@ def make_scan_table(sorted_u64, k: int, device="cpu"):
         # prefilter false positive, removed by host verification
         tmix = np.full(b, 0xDEADBEEF, dtype=np.uint32)
         tmix[: mixes.size] = mixes
-        return ScanTable("cmp", k, arr, tmix=u64.from_u32(np.sort(tmix), device))
+        return ScanTable("cmp", k, arr, u64.from_u32(np.sort(tmix), device))
     both = np.unique(np.concatenate([u, rc]))
     b = 1 << 14
     while b < both.size:
@@ -218,10 +216,7 @@ def make_scan_table(sorted_u64, k: int, device="cpu"):
     tlo = np.zeros(b, dtype=np.uint32)
     thi[: both.size] = (both >> np.uint64(32)).astype(np.uint32)
     tlo[: both.size] = (both & low).astype(np.uint32)
-    return ScanTable(
-        "join", k, arr,
-        thi=u64.from_u32(thi, device), tlo=u64.from_u32(tlo, device),
-    )
+    return ScanTable("join", k, arr, u64.from_u32(np.sort(thi ^ tlo), device))
 
 
 def scan_members_host(codes: np.ndarray, k: int, table):
@@ -302,43 +297,33 @@ def scan_batch_compact_p4(packed2d: torch.Tensor, k: int, tmix: torch.Tensor,
 
 
 def scan_batch_join_global_p4(packed2d: torch.Tensor, k: int,
-                              thi: torch.Tensor, tlo: torch.Tensor,
-                              cap_total: int) -> torch.Tensor:
-    """Batched large-table membership via ONE flattened sort-merge join
-    (plain torch ops on either device): the batch's dir-half mixes are
-    sorted once, each table mix's equal-key run is located with
-    searchsorted, and run coverage is painted with index_add + cumsum.
+                              tmix: torch.Tensor, cap_total: int) -> torch.Tensor:
+    """Batched large-table membership ('join' tables), the function of
+    agc_tpu's sort-merge join: member = valid & (dlo ^ dhi) in the table's
+    mixes. One dir_mix launch gives every position's halves, one
+    member_mix launch tests the mixes against the sorted table; the
+    compaction is torch ops.
 
     Returns ONE int32 vector over the whole batch:
         [count, gpos[cap_total] (ascending; fills lead), dlo[...], dhi[...]]
-    where gpos = row * n + pos (see _decode_scan_vec_global)."""
+    where gpos = row * n + pos (see _decode_scan_vec_global); the last
+    cap_total members are kept when count > cap_total, and fills are
+    gpos = -1 with the dlo / dhi of flat position 0, as in agc_tpu."""
     b, half = packed2d.shape
     flat = b * 2 * half
-    dlo, dhi, valid = _dir_halves(_unpack4_dev(packed2d), k)
+    dlo, dhi, valid = dir_mix(packed2d, k)
     dlo = dlo.reshape(flat)
     dhi = dhi.reshape(flat)
-    dev = packed2d.device
-    payload = torch.where(
-        valid.reshape(flat), torch.arange(flat, dtype=torch.int64, device=dev), -1
-    )
-    # join on the unsigned 32-bit XOR mix; collisions are prefilter false
-    # positives removed by the host's exact verification
-    mix = (dlo ^ dhi).to(torch.int64) & u64.M32
-    s_mix, order = torch.sort(mix)
-    s_pay = payload[order]
-    tmix = torch.sort((thi ^ tlo).to(torch.int64) & u64.M32).values
-    lo_ix = torch.searchsorted(s_mix, tmix, side="left")
-    hi_ix = torch.searchsorted(s_mix, tmix, side="right")
-    ones = torch.ones_like(lo_ix)
-    cover = torch.zeros(flat + 1, dtype=torch.int64, device=dev)
-    cover.index_add_(0, lo_ix, ones).index_add_(0, hi_ix, -ones)
-    member = (torch.cumsum(cover[:flat], 0) > 0) & (s_pay >= 0)
-    count = member.sum()
-    gpos = torch.topk(torch.where(member, s_pay, -1), cap_total).values.flip(0)
+    # collisions of the 32-bit mix are prefilter false positives, removed
+    # by the host's exact verification
+    member = member_mix(dlo ^ dhi, tmix) & valid.reshape(flat)
+    hits = torch.nonzero(member).flatten()
+    kept = hits[max(0, hits.numel() - cap_total):]
+    gpos = torch.full((cap_total,), -1, dtype=torch.int64, device=packed2d.device)
+    gpos[cap_total - kept.numel():] = kept
     safe = gpos.clamp(min=0)
-    return torch.cat(
-        [count.reshape(1).to(torch.int32), gpos.to(torch.int32), dlo[safe], dhi[safe]]
-    )
+    count = torch.tensor([hits.numel()], dtype=torch.int32, device=packed2d.device)
+    return torch.cat([count, gpos.to(torch.int32), dlo[safe], dhi[safe]])
 
 
 def _cap_total_for(rows: int, b: int) -> int:
@@ -354,14 +339,13 @@ def _dispatch_scan_batch(mat: np.ndarray, table: ScanTable, cap: int):
     """Upload a packed row matrix and scan it; returns (result np.uint32,
     is_global): 'cmp' tables give per-row vectors, 'join' tables one
     global-join vector for the whole dispatch."""
-    dev = (table.tmix if table.kind == "cmp" else table.thi).device
-    packed = torch.from_numpy(mat).to(dev)
+    packed = torch.from_numpy(mat).to(table.tmix.device)
     if table.kind == "cmp":
         out = scan_batch_compact_p4(packed, table.k, table.tmix, cap)
         return u64.to_u32(out), False
     rows, half = mat.shape
     cap_total = _cap_total_for(rows, half * 2)
-    out = scan_batch_join_global_p4(packed, table.k, table.thi, table.tlo, cap_total)
+    out = scan_batch_join_global_p4(packed, table.k, table.tmix, cap_total)
     return u64.to_u32(out), True
 
 
@@ -393,6 +377,92 @@ def collect_kmers_device_packed(contigs: list, k: int, device):
 def sort_kmers(kmers: torch.Tensor) -> torch.Tensor:
     """Sort a flipped int64 k-mer pool (unsigned order; sentinels last)."""
     return torch.sort(kmers).values
+
+
+# ---------------------------------------------------------------------------
+# value-sampled discovery (references over Compressor._POOL_DEVICE_MAX)
+# ---------------------------------------------------------------------------
+
+_MURMUR_C1 = 0xFF51AFD7ED558CCD - (1 << 64)  # as int64
+_MURMUR_C2 = 0xC4CEB9FE1A85EC53 - (1 << 64)
+
+
+def _lsr(x: torch.Tensor, s: int) -> torch.Tensor:
+    """Logical right shift of int64 bit patterns (torch's >> is
+    arithmetic on signed types)."""
+    return (x >> s) & ((1 << (64 - s)) - 1)
+
+
+def sample_keep(canon: torch.Tensor, frac_bits: int) -> torch.Tensor:
+    """The value sample of agc_tpu's sample_compact_kmers: True where
+    ``canon`` (flipped int64) is a k-mer, not SENTINEL, whose murmur64
+    finalizer hash has its top ``frac_bits`` bits 0. The hash keys on the
+    value, so every occurrence of a k-mer is kept or dropped together.
+
+    The hash runs on the raw unsigned value (the flip undone). torch's
+    int64 multiply returns the low 64 bits of the two's-complement
+    product, and those are the unsigned product modulo 2^64, so the
+    finalizer's multiplies are exact; its right shifts are logical
+    (``_lsr``)."""
+    if not 1 <= frac_bits <= 63:
+        raise ValueError(f"frac_bits must be in [1, 63], got {frac_bits}")
+    h = u64.flip(canon)
+    h = h ^ _lsr(h, 33)
+    h = h * _MURMUR_C1
+    h = h ^ _lsr(h, 33)
+    h = h * _MURMUR_C2
+    h = h ^ _lsr(h, 33)
+    return (_lsr(h, 64 - frac_bits) == 0) & (canon != u64.SENTINEL)
+
+
+def chunk_slices(n: int, k: int) -> list[tuple[int, int]]:
+    """The [keep_from, real) slices of agc_tpu's collect_kmers_device
+    plan in contig coordinates: windows of CHUNK symbols with k-1
+    overlap, so the slices tile [0, n) without overlap."""
+    out = []
+    start = 0
+    while n >= k and start < n:
+        lo = max(0, start - (k - 1))
+        end = min(lo + CHUNK, n)
+        out.append((start, end))
+        start = end
+    return out
+
+
+def sample_bucket(n: int, frac_bits: int) -> int:
+    """Sampled values kept of an n-position chunk: the pow2 >= 1.25 x the
+    expected count, at least 1024 (agc_tpu's out_bucket)."""
+    want = max(1024, (n >> frac_bits) + (n >> (frac_bits + 2)))
+    b = 1024
+    while b < want:
+        b <<= 1
+    return b
+
+
+def sample_kmers(canon: torch.Tensor, n: int, k: int, frac_bits: int) -> list:
+    """Value-sampled k-mers of one contig, per CHUNK slice: the values
+    ``sample_keep`` keeps, and where a slice keeps more than its
+    ``sample_bucket``, only its smallest that many (agc_tpu's per-chunk
+    sort and truncation). ``canon``: the whole contig's canonical codes
+    from one kmer_canon launch (a chunk's windows are the whole contig's
+    windows, so the slices equal agc_tpu's chunk records). Returns
+    unsorted int64 tensors, one per slice."""
+    slices = chunk_slices(n, k)
+    if not slices:
+        return []
+    canon = canon[:n]
+    keep = sample_keep(canon, frac_bits)
+    counts = torch.stack([keep[s:e].sum() for s, e in slices]).tolist()
+    vals = canon[keep]  # position order: each slice's values are contiguous
+    parts, off = [], 0
+    for (s, e), c in zip(slices, counts):
+        v = vals[off : off + c]
+        off += c
+        cap = sample_bucket(e - s, frac_bits)
+        if c > cap:  # a repeat that hashes in overflows this slice
+            v = torch.sort(v).values[:cap]
+        parts.append(v)
+    return parts
 
 
 def find_splitter_emissions_packed(canon_flat: torch.Tensor, placements,
@@ -629,8 +699,7 @@ class ScanBatcher:
         return hit
 
     def _device(self):
-        t = self.table
-        return (t.tmix if t.kind == "cmp" else t.thi).device
+        return self.table.tmix.device
 
     def collect(self, token):
         """Resolve a token to (pos, udir, urc)."""
@@ -667,8 +736,7 @@ class ScanBatcher:
                         packed = torch.from_numpy(packed_mat).to(self._device())
                         vec = u64.to_u32(
                             scan_batch_join_global_p4(
-                                packed, self.table.k, self.table.thi,
-                                self.table.tlo, cap_total,
+                                packed, self.table.k, self.table.tmix, cap_total
                             )
                         )
                         if len(self._retry_cache) >= 8:

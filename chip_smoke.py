@@ -9,7 +9,11 @@ Phases (any failure exits non-zero before the result line):
 2. build of the CUDA kernels from agc_tpu_torch/csrc (nvcc, sm_90a);
 3. each kernel against its plain PyTorch version on the card at the
    shapes the main path gives it, outputs compared exactly (integer
-   outputs: tolerance 0), both timed with CUDA events;
+   outputs: tolerance 0), both timed with CUDA events, beside the least
+   time the card could take (``bound_ms``) and, for member_mix, the one
+   PyTorch call that computes the same function (torch.isin); the
+   large-table join (dir_mix + member_mix) on the card against its plain
+   version on the CPU;
 4. the main path: a chr-scale create (one 64 Mbase reference contig with
    repeat families + 2 resequenced samples, default parameters) through
    agc_tpu_torch.core.compressor.create_archive(device="cuda"), with the
@@ -20,8 +24,20 @@ Phases (any failure exits non-zero before the result line):
 5. the port's CLI on the card: `create --device cuda`, then `getctg`;
 6. card against CPU on a collection of 3 files x 24 contigs (20 kbases to
    2 Mbases each): archives equal stream for stream and part for part for
-   default parameters, for -c (concatenated genomes) and for segment size
-   1000 (over 8192 splitters: the large-table join scan).
+   default parameters, for -c (concatenated genomes), for segment size
+   1000 (over 8192 splitters: the large-table join scan) and for segment
+   1000 with value-sampled discovery (_POOL_DEVICE_MAX lowered);
+7. the whole-genome path: a reference of three contigs with the lengths
+   of GRCh38 chr1-chr3 (689,445,510 bases) + 2 resequenced samples,
+   default parameters, so discovery is value-sampled (the reference is
+   over _POOL_DEVICE_MAX) and every scan goes through the join (over 8192
+   splitters): wall, Mbases/s, stage timers, splitter count, the launch
+   counts of that run; the discovery again with every kmer_canon and
+   greedy_walk call held against its plain version on the card at this
+   path's shapes (chr1-3 rows, whole contigs over the sampled pool) and
+   the plain versions' splitter set equal to the archive's; the device
+   busy share of a profiled create, and every sample extracted byte-equal
+   through agc_tpu_torch.AGCFile.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is {"ok": true, "device": {...}}. Without CUDA, or without the
@@ -46,6 +62,18 @@ N_SCAN = 4 << 20  # symbols per scan row (ops/kmers.py CHUNK)
 N_SAMPLES = 2
 SEED = 20260816
 ALPHA = b"ACGT"
+# GRCh38 chr1, chr2, chr3 (the whole-genome path's reference, phase 7)
+GRCH38_CHR1_3 = (248_956_422, 242_193_529, 198_295_559)
+# The least time the card could take (bound_ms): bytes over HBM's
+# 3.35 TB/s, or integer operations over the int32 rate, whichever is
+# larger. The H100 SXM data sheet's 67 TFLOP/s float32 counts an FMA as
+# two operations on 128 lanes an SM; an SM has 64 int32 lanes, so
+# 67e12 / 4 int32 instructions a second.
+HBM_BYTES_PER_S = 3.35e12
+INT32_OPS_PER_S = 67e12 / 4
+# int32 operations of the rolling direct code a position: shift, OR and
+# mask of the code, and the update of the valid-symbol run
+LADDER_OPS = 4
 
 
 def fail(msg: str) -> None:
@@ -73,11 +101,21 @@ def cuda_ms(torch, fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
+def bound(n_bytes: float, n_ops: float) -> tuple[float, str]:
+    """(bound_ms, bound_by) for a call that must move n_bytes (each input
+    read once, each output written once) and do n_ops int32 operations."""
+    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+    t_ops = n_ops / INT32_OPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
 def max_abs_err(torch, a, b) -> int:
     check(a.shape == b.shape and a.dtype == b.dtype, "shape/dtype mismatch")
     if a.numel() == 0:
         return 0
-    return int((a.to(torch.int64) - b.to(torch.int64)).abs().max())
+    err = int((a.to(torch.int64) - b.to(torch.int64)).abs().max())
+    # a difference of 2^63 wraps to a negative abs(): never report 0 then
+    return err if err > 0 or torch.equal(a, b) else 1 << 63
 
 
 def scan_rows(np, n_rows: int, n: int, seed: int):
@@ -143,9 +181,14 @@ def write_fasta(np, path: str, contigs) -> None:
     alpha = np.frombuffer(ALPHA, dtype=np.uint8)
     with open(path, "wb") as f:
         for name, seq in contigs:
-            text = alpha[seq].tobytes()
             f.write(b">" + name.encode() + b"\n")
-            f.write(b"\n".join(text[i : i + 80] for i in range(0, len(text), 80)) + b"\n")
+            full = len(seq) // 80
+            lines = np.empty((full, 81), dtype=np.uint8)
+            lines[:, :80] = alpha[seq[: full * 80]].reshape(full, 80)
+            lines[:, 80] = ord("\n")
+            f.write(lines.tobytes())
+            if len(seq) % 80:
+                f.write(alpha[seq[full * 80 :]].tobytes() + b"\n")
 
 
 def same_archive(reader_cls, a: str, b: str) -> bool:
@@ -200,6 +243,7 @@ def main() -> int:
     sys.path.insert(0, REPO)
     from agc_tpu_torch import AGCFile
     from agc_tpu_torch.core import ArchiveReader
+    from agc_tpu_torch.core import compressor as cmod
     from agc_tpu_torch.core.compressor import Compressor, CompressorParams, create_archive
     from agc_tpu_torch.ops import _build
     from agc_tpu_torch.ops import cuda_kmers as ck
@@ -232,6 +276,7 @@ def main() -> int:
     n_scan = N_SCAN
     rows = scan_rows(np, 8, n_scan, SEED)
     packed = torch.from_numpy(np.stack([tk.pack4_np(r) for r in rows])).to(dev)
+    n_pos = packed.numel() * 2
     err = 0
     scan_ms = plain_ms = None
     for k in (17, 21, 31, 32):
@@ -256,26 +301,97 @@ def main() -> int:
             if k == 31 and n_splitters == 8192:
                 scan_ms = cuda_ms(torch, lambda: ck.scan_fused(packed, k, table.tmix, tk._SCAN_CAP), 20)
                 plain_ms = cuda_ms(torch, lambda: ck.scan_fused_plain(packed, k, table.tmix, tk._SCAN_CAP), 3)
+                # what the function needs a position: the ladder, the
+                # XOR-mix and one equality test (a constant-probe lookup)
+                scan_bound = bound(
+                    packed.numel() + 4 * t_size + 4 * packed.shape[0] * (1 + 3 * tk._SCAN_CAP),
+                    n_pos * (LADDER_OPS + 2),
+                )
     check(err == 0, f"scan_fused disagrees with its plain version (max_abs_err {err})")
-    # the large-table join (plain torch ops, no kernel): card against CPU
+    results["scan_fused"] = dict(
+        source="agc_tpu_torch/csrc/scan_fused.cu",
+        replaces="agc_tpu/ops/pallas_kmers.py:232",
+        max_abs_err=err, ms=scan_ms, plain_ms=plain_ms, library_ms=None,
+        bound=scan_bound,
+        shape=f"8 x {n_scan} symbols, k=31, 16384-entry table, cap {tk._SCAN_CAP}",
+    )
+
+    # dir_mix: the halves the join reads, on the join's rows (8 x 4 Mi)
+    k = 31
+    dlo, dhi, valid = ck.dir_mix(packed, k)
+    want = ck.dir_mix_plain(packed, k)
+    e = max(max_abs_err(torch, x, y) for x, y in zip((dlo, dhi, valid), want))
+    check(e == 0, f"dir_mix disagrees with its plain version (max_abs_err {e})")
+    del want
+    results["dir_mix"] = dict(
+        source="agc_tpu_torch/csrc/dir_mix.cu",
+        replaces="agc_tpu/ops/kmers.py:58",
+        max_abs_err=e,
+        ms=cuda_ms(torch, lambda: ck.dir_mix(packed, k), 20),
+        plain_ms=cuda_ms(torch, lambda: ck.dir_mix_plain(packed, k), 3),
+        library_ms=None,
+        bound=bound(packed.numel() + 9 * n_pos, LADDER_OPS * n_pos),
+        shape=f"8 x {n_scan} symbols, k=31",
+    )
+    print(f"dir_mix k=31 8 x {n_scan}: {int(valid.sum())} valid windows, max_abs_err {e}")
+
+    # member_mix on the join's mixes (N = 8 x 4 Mi): the whole-genome
+    # path's 32768-entry table (shared memory) and a whole human
+    # assembly's 131072 entries (device memory)
+    mix = (dlo ^ dhi).reshape(-1)
+    del dlo, dhi, valid
+    ud, ur, v = tk.dir_rc_kmers_np(rows[0, :1_000_000], k)
+    canon = np.unique(np.minimum(ud, ur)[v])
+    mm = {}
+    shared_max = _build.lib().agc_member_mix_shared_max()
+    check(32768 <= shared_max < 131072,
+          f"member_mix's shared-memory limit {shared_max} does not split the two tables")
+    for n_split in (12_000, 40_000):
+        pick = np.sort(canon[:: len(canon) // n_split][:n_split])
+        tbl = tk.make_scan_table(pick, k, dev).tmix
+        t_size = tbl.numel()
+        want = ck.member_mix_plain(mix, tbl)
+        e = max(max_abs_err(torch, ck.member_mix(mix, tbl), want),
+                max_abs_err(torch, torch.isin(mix, tbl), want))  # the library agrees
+        branch = "shared memory" if t_size <= shared_max else "device memory"
+        check(e == 0, f"member_mix disagrees with its plain version (table {t_size}, "
+                      f"max_abs_err {e})")
+        mm[t_size] = dict(
+            max_abs_err=e,
+            ms=cuda_ms(torch, lambda: ck.member_mix(mix, tbl), 20),
+            plain_ms=cuda_ms(torch, lambda: ck.member_mix_plain(mix, tbl), 3),
+            library_ms=cuda_ms(torch, lambda: torch.isin(mix, tbl), 3),
+            # 4 bytes in and 1 out a mix; one equality test a mix (a
+            # constant-probe lookup needs no more)
+            bound=bound(5 * mix.numel() + 4 * t_size, mix.numel()),
+        )
+        print(f"member_mix N={mix.numel()} table={t_size} in {branch}: "
+              f"{int(want.sum())} members, max_abs_err {e}; kernel {mm[t_size]['ms']:.4f} ms, "
+              f"plain {mm[t_size]['plain_ms']:.4f} ms, torch.isin "
+              f"{mm[t_size]['library_ms']:.4f} ms, bound {mm[t_size]['bound'][0]:.4f} ms ({card})")
+    check(sorted(mm) == [32768, 131072], f"member_mix tables {sorted(mm)}")
+    results["member_mix"] = dict(
+        source="agc_tpu_torch/csrc/member_mix.cu",
+        replaces="agc_tpu/ops/pallas_kmers.py:333",
+        **mm[32768],
+        shape=f"{mix.numel()} mixes, 32768-entry table (shared memory)",
+    )
+    del mix
+
+    # the large-table join: dir_mix + member_mix on the card against the
+    # plain versions on the CPU, tolerance 0
     ud, ur, v = tk.dir_rc_kmers_np(rows[0, :400_000], 31)
     canon = np.unique(np.minimum(ud, ur)[v])
     pick = canon[:: max(1, len(canon) // 9000)]  # > 8192 splitters: a join table
     jt_dev, jt_cpu = tk.make_scan_table(pick, 31, dev), tk.make_scan_table(pick, 31, "cpu")
     check(jt_dev.kind == "join", "the join table is not a join table")
     jcap = tk._cap_total_for(2, n_scan)
-    j_dev = tk.scan_batch_join_global_p4(packed[:2], 31, jt_dev.thi, jt_dev.tlo, jcap)
-    j_cpu = tk.scan_batch_join_global_p4(packed[:2].cpu(), 31, jt_cpu.thi, jt_cpu.tlo, jcap)
+    j_dev = tk.scan_batch_join_global_p4(packed[:2], 31, jt_dev.tmix, jcap)
+    j_cpu = tk.scan_batch_join_global_p4(packed[:2].cpu(), 31, jt_cpu.tmix, jcap)
     e = max_abs_err(torch, j_dev.cpu(), j_cpu)
-    print(f"join scan (torch ops) table={jt_dev.thi.numel()}: count {int(j_dev[0])}, "
-          f"card vs CPU max_abs_err {e}")
+    print(f"join scan table={jt_dev.tmix.numel()}: count {int(j_dev[0])}, "
+          f"card (kernels) vs CPU (plain) max_abs_err {e}")
     check(e == 0, "the join scan differs between the card and the CPU")
-    results["scan_fused"] = dict(
-        source="agc_tpu_torch/csrc/scan_fused.cu",
-        replaces="agc_tpu/ops/pallas_kmers.py:232",
-        max_abs_err=err, ms=scan_ms, plain_ms=plain_ms,
-        shape=f"8 x {n_scan} symbols, k=31, 16384-entry table, cap {tk._SCAN_CAP}",
-    )
     del packed
 
     rng = np.random.default_rng(SEED)
@@ -291,6 +407,8 @@ def main() -> int:
         max_abs_err=e,
         ms=cuda_ms(torch, lambda: ck.kmer_canon(cpacked, k), 10),
         plain_ms=cuda_ms(torch, lambda: ck.kmer_canon_plain(cpacked, k), 2),
+        library_ms=None,
+        bound=bound(cpacked.numel() + 8 * canon.numel(), 20 * canon.numel()),
         shape=f"1 contig x {len(ref)} symbols, k=31",
     )
     print(f"kmer_canon k=31 n={len(ref)}: max_abs_err {e}")
@@ -306,12 +424,19 @@ def main() -> int:
     e = max_abs_err(torch, g, gp)
     check(e == 0, f"greedy_walk disagrees with its plain version (max_abs_err {e})")
     check(int(g[0, 0]) > 100, f"greedy_walk emitted only {int(g[0, 0])} splitters")
+    # the data decides the work: one 256-position window per emission plus
+    # one for the end and one for the tail; each position reads its code
+    # and one constant-probe lookup of the pool (the entry and its
+    # neighbour, two compares)
+    probes = 256 * (int(g[0, 0]) + 2)
     results["greedy_walk"] = dict(
         source="agc_tpu_torch/csrc/greedy_walk.cu",
         replaces="agc_tpu/ops/kmers.py:599",
         max_abs_err=e,
         ms=cuda_ms(torch, lambda: ck.greedy_walk(flat, starts, reals, pool, seg, cap), 5),
         plain_ms=cuda_ms(torch, lambda: ck.greedy_walk_plain(flat, starts, reals, pool, seg, cap), 2),
+        library_ms=None,
+        bound=bound(24 * probes + 8 * g.numel(), 2 * probes),
         shape=f"1 contig x {len(ref)} positions, pool {pool.numel()}, seg {seg}",
     )
     print(f"greedy_walk: {int(g[0, 0])} emissions, max_abs_err {e}")
@@ -346,7 +471,7 @@ def main() -> int:
         launches = dict(ck.LAUNCHES)
         print(f"create: {total} bases in {walls[0]:.4f} s = {total / walls[0] / 1e6:.2f} "
               f"Mbases/s ({card}); archive {os.path.getsize(out)} bytes; launches {launches}")
-        for name in results:
+        for name in ("scan_fused", "kmer_canon", "greedy_walk"):
             check(launches[name] > 0, f"the create never launched {name}")
             results[name]["launches"] = launches[name]
         walls += [timed_create(CompressorParams()) for _ in range(2)]
@@ -406,38 +531,160 @@ def main() -> int:
                 for ci, b in enumerate(base)
             ])
         cbases = sum(len(b) for b in base)
-        for label, params in (
-            ("default", CompressorParams()),
-            ("-c", CompressorParams(concatenated_genomes=True)),
-            ("segment 1000", CompressorParams(segment_size=1000)),
+        n_splits = {}
+        for label, params, pool_max in (
+            ("default", CompressorParams(), None),
+            ("-c", CompressorParams(concatenated_genomes=True), None),
+            ("segment 1000", CompressorParams(segment_size=1000), None),
+            # a reference over _POOL_DEVICE_MAX: value-sampled discovery
+            ("sampled + segment 1000", CompressorParams(segment_size=1000), 1 << 24),
         ):
-            a, b = os.path.join(tmp, "card.agc"), os.path.join(tmp, "cpu.agc")
-            t0 = time.perf_counter()
-            create_archive(a, cfiles, params, device=DEVICE)
-            t_card = time.perf_counter() - t0
-            t0 = time.perf_counter()
-            create_archive(b, cfiles, params, device="cpu")
-            t_cpu = time.perf_counter() - t0
+            default_max = Compressor._POOL_DEVICE_MAX
+            if pool_max is not None:
+                Compressor._POOL_DEVICE_MAX = pool_max
+            try:
+                a, b = os.path.join(tmp, "card.agc"), os.path.join(tmp, "cpu.agc")
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                ctimes = create_archive(a, cfiles, params, device=DEVICE).times
+                torch.cuda.synchronize()
+                t_card = time.perf_counter() - t0
+                t0 = time.perf_counter()
+                create_archive(b, cfiles, params, device="cpu")
+                t_cpu = time.perf_counter() - t0
+            finally:
+                Compressor._POOL_DEVICE_MAX = default_max
             reader = ArchiveReader(a)
-            n_split = reader.get_part("splitters", 0)[1]
+            n_split = n_splits[label] = reader.get_part("splitters", 0)[1]
             reader.close()
             equal = same_archive(ArchiveReader, a, b)
+            stages = {n: round(ctimes[n], 3) for n in ("splitter_discovery", "scan_collect",
+                                                        "match_contig", "store_encode")}
             print(f"collection ({label}; 3 files x 24 contigs, reference {cbases} bases): "
-                  f"{n_split} splitters; card {t_card:.2f} s, CPU {t_cpu:.2f} s; "
-                  f"archives equal part for part: {equal}")
+                  f"{n_split} splitters; card {t_card:.2f} s {stages}, CPU {t_cpu:.2f} s; "
+                  f"archives equal part for part: {equal} ({card})")
             check(equal, f"card and CPU archives differ ({label})")
-        check(n_split > 8192, "segment 1000 did not reach the join-scan table size")
+        check(n_splits["segment 1000"] > 8192, "segment 1000 did not reach the join-scan table size")
+        check(n_splits["sampled + segment 1000"] > 8192
+              and n_splits["sampled + segment 1000"] != n_splits["segment 1000"],
+              "the sampled mode did not give its own splitter set over 8192")
+        del base
+
+        # -- 7. the whole-genome path: sampled discovery and the join -------
+        wrng = np.random.default_rng(SEED + 2)
+        names = [f"chr{i + 1}" for i in range(len(GRCH38_CHR1_3))]
+        t0 = time.perf_counter()
+        wseqs = {"ref": [structured_ref(np, wrng, n) for n in GRCH38_CHR1_3]}
+        for i in range(N_SAMPLES):
+            wseqs[f"s{i}"] = [mutate(np, wrng, c) for c in wseqs["ref"]]
+        wfiles = []
+        os.mkdir(os.path.join(tmp, "whole"))
+        for sname, contigs in wseqs.items():  # the sample name is the file's stem
+            wfiles.append(os.path.join(tmp, "whole", f"{sname}.fa"))
+            write_fasta(np, wfiles[-1], list(zip(names, contigs)))
+        wtotal = sum(len(c) for cs in wseqs.values() for c in cs)
+        print(f"whole-genome input: reference {sum(GRCH38_CHR1_3)} bases (GRCh38 chr1-3 "
+              f"lengths) + {N_SAMPLES} samples = {wtotal} bases, made in "
+              f"{time.perf_counter() - t0:.1f} s")
+        wout = os.path.join(tmp, "whole.agc")
+        ck.reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        wtimes = create_archive(wout, wfiles, CompressorParams(), device=DEVICE).times
+        torch.cuda.synchronize()
+        wwall = time.perf_counter() - t0
+        wlaunch = dict(ck.LAUNCHES)
+        for name in ("kmer_canon", "greedy_walk", "member_mix", "dir_mix"):
+            check(wlaunch[name] > 0, f"the whole-genome create never launched {name}")
+        for name in ("member_mix", "dir_mix"):
+            results[name]["launches"] = wlaunch[name]
+        reader = ArchiveReader(wout)
+        data, w_split = reader.get_part("splitters", 0)
+        reader.close()
+        w_got = set(np.frombuffer(data, dtype="<u8").tolist())
+        print(f"whole-genome create: {wtotal} bases in {wwall:.4f} s = "
+              f"{wtotal / wwall / 1e6:.2f} Mbases/s ({card}); archive "
+              f"{os.path.getsize(wout)} bytes; {w_split} splitters; launches {wlaunch}")
+        print("whole-genome stage timers (s): " + json.dumps(
+            {n: round(t, 4) for n, t in sorted(wtimes.items(), key=lambda kv: -kv[1])}))
+        check(w_split > 8192, f"the whole-genome create has {w_split} splitters, not > 8192")
+
+        # the whole-genome discovery once more, each kmer_canon and
+        # greedy_walk call held against its plain version on the card at
+        # this path's shapes (the chr1-3 rows; each contig walked whole over
+        # the sampled pool); discovery goes on from the plain outputs, so
+        # its splitter set is the plain versions' and must be the archive's
+        held = {"kmer_canon": [], "greedy_walk": []}
+
+        def holding(name, kernel, plain, positions):
+            def call(*args):
+                got, want = kernel(*args), plain(*args)
+                held[name].append((max_abs_err(torch, got, want), positions(*args)))
+                return want
+            return call
+
+        saved = cmod.kmer_canon, tk.greedy_walk
+        cmod.kmer_canon = holding("kmer_canon", ck.kmer_canon, ck.kmer_canon_plain,
+                                  lambda packed, k: 2 * packed.numel())
+        tk.greedy_walk = holding("greedy_walk", ck.greedy_walk, ck.greedy_walk_plain,
+                                 lambda canon, starts, reals, pool, *_: (canon.numel(), pool.numel()))
+        t0 = time.perf_counter()
+        try:
+            plain_disc = Compressor(os.path.join(tmp, "plain.agc"), CompressorParams(),
+                                    reference_file=wfiles[0], device=DEVICE)
+            w_want = plain_disc.splitter_set_snapshot()
+            plain_disc.abort()
+        finally:
+            cmod.kmer_canon, tk.greedy_walk = saved
+        for name, calls in held.items():
+            e = max((err for err, _ in calls), default=None)
+            print(f"whole-genome {name} vs plain on the card: {len(calls)} calls at "
+                  f"{[at for _, at in calls]} (positions{', pool' * (name == 'greedy_walk')}), "
+                  f"max_abs_err {e}")
+            check(e == 0, f"whole-genome {name} disagrees with its plain version ({e})")
+            results[name]["max_abs_err"] = max(results[name]["max_abs_err"], e)
+        check(len(held["kmer_canon"]) == 2 * len(names) and len(held["greedy_walk"]) == len(names),
+              "the whole-genome discovery did not go through both kernels once a contig")
+        print(f"whole-genome splitters: {len(w_got)} in the archive, {len(w_want)} from the "
+              f"plain versions on the card ({time.perf_counter() - t0:.1f} s)")
+        check(w_got == w_want, "whole-genome splitters differ from the plain versions'")
+        del held, plain_disc
+        torch.cuda.empty_cache()
+
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            create_archive(wout, wfiles, CompressorParams(), device=DEVICE)
+            torch.cuda.synchronize()
+            pwall = time.perf_counter() - t0
+        busy, by_name = device_time(torch, prof)
+        print(f"whole-genome profiled create: wall {pwall:.4f} s, device busy {busy:.3f} ms, "
+              f"busy share {busy / 1e3 / pwall:.5f} of that run ({card})")
+        for name, ms in sorted(by_name.items(), key=lambda kv: -kv[1])[:12]:
+            print(f"  device {ms:9.3f} ms  {name[:100]}")
+        del prof
+        t0 = time.perf_counter()
+        with AGCFile(wout) as agc:
+            for sname, contigs in wseqs.items():
+                for cname, seq in zip(names, contigs):
+                    check(agc.GetCtgSeq(sname, cname).encode("latin-1") == alpha[seq].tobytes(),
+                          f"{cname}@{sname} does not extract byte-equal")
+        print(f"whole-genome extract: {len(wseqs)} samples x {len(names)} contigs byte-equal "
+              f"({time.perf_counter() - t0:.1f} s)")
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
     kernels = [
         {"name": name, "route": "cuda", "source": r["source"], "replaces": r["replaces"],
          "launches": r["launches"], "max_abs_err": r["max_abs_err"],
-         "ms": r["ms"], "plain_ms": r["plain_ms"]}
+         "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound"][0],
+         "bound_by": r["bound"][1], "library_ms": r["library_ms"]}
         for name, r in results.items()
     ]
     for name, r in results.items():
-        print(f"{name}: {r['ms']:.4f} ms, plain version {r['plain_ms']:.4f} ms "
+        print(f"{name}: {r['ms']:.4f} ms, plain version {r['plain_ms']:.4f} ms, bound "
+              f"{r['bound'][0]:.4f} ms ({r['bound'][1]}), library "
+              f"{r['library_ms'] if r['library_ms'] is None else round(r['library_ms'], 4)} ms "
               f"({r['shape']}; {card})")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -1,7 +1,8 @@
 """agc_tpu_torch create/append (device='cpu', the kernels' plain versions)
 against agc_tpu's create/append: equal splitter sets, archives equal
 stream for stream and part for part, byte-equal extraction with agc_tpu's
-Decompressor, and a port that never imports jax.
+Decompressor, and a port that imports neither jax nor agc_tpu. Each
+package gets its own CompressorParams.
 
 agc_tpu runs with AGC_TPU_DEVICE_MATCH=0: its device match prepass is not
 ported, and the port's default matches agc_tpu with the prepass off.
@@ -16,11 +17,11 @@ import numpy as np
 import pytest
 
 from agc_tpu.core.archive import ArchiveReader
-from agc_tpu.core.compressor import CompressorParams
+from agc_tpu.core.compressor import CompressorParams as TpuParams
 from agc_tpu.core.compressor import append_archive as tpu_append
 from agc_tpu.core.compressor import create_archive as tpu_create
 from agc_tpu.core.decompressor import Decompressor
-from agc_tpu_torch.core.compressor import append_archive, create_archive
+from agc_tpu_torch.core.compressor import CompressorParams, append_archive, create_archive
 
 from util import make_collection, mutate, random_seq, write_fa
 
@@ -49,6 +50,11 @@ def assert_same_archive(a, b):
     finally:
         ra.close()
         rb.close()
+
+
+def _tpu_params(params):
+    """The same parameters as agc_tpu's CompressorParams."""
+    return TpuParams(**vars(params))
 
 
 def _fasta_body(path, contig):
@@ -88,7 +94,7 @@ def test_create_matches_agc_tpu(tmp_path, device_match_off, profile, layout):
     params = CompressorParams(segment_size=4000, profile=profile)
     ours, ref = str(tmp_path / "port.agc"), str(tmp_path / "tpu.agc")
     create_archive(ours, paths, params, device="cpu")
-    tpu_create(ref, paths, params)
+    tpu_create(ref, paths, _tpu_params(params))
     assert _splitters(ours) == _splitters(ref)
     assert len(_splitters(ours)) > 2
     assert_same_archive(ours, ref)
@@ -106,7 +112,7 @@ def test_create_default_params_concatenated(tmp_path, device_match_off):
                    CompressorParams(concatenated_genomes=True, segment_size=3000)):
         ours, ref = str(tmp_path / "port.agc"), str(tmp_path / "tpu.agc")
         create_archive(ours, paths, params, device="cpu")
-        tpu_create(ref, paths, params)
+        tpu_create(ref, paths, _tpu_params(params))
         assert_same_archive(ours, ref)
 
 
@@ -120,10 +126,10 @@ def test_append_round_trip(tmp_path, device_match_off):
     params = CompressorParams(segment_size=3000)
     ours, ref = str(tmp_path / "port.agc"), str(tmp_path / "tpu.agc")
     create_archive(ours, base, params, device="cpu")
-    tpu_create(ref, base, params)
+    tpu_create(ref, base, _tpu_params(params))
     ours2, ref2 = str(tmp_path / "port2.agc"), str(tmp_path / "tpu2.agc")
     append_archive(ours, ours2, [extra], params, device="cpu")
-    tpu_append(ref, ref2, [extra], params)
+    tpu_append(ref, ref2, [extra], _tpu_params(params))
     assert_same_archive(ours2, ref2)
     assert_extracts(ours2, [("extra", extra)], ["c1", "c2"])
     assert_extracts(ours2, files, ["c1"])
@@ -155,6 +161,47 @@ def test_port_never_imports_jax(tmp_path):
     assert os.path.getsize(out) > 0
 
 
+_BLOCK_REFERENCE = (
+    "import sys\n"
+    "class _Block:\n"
+    "    def find_spec(self, name, path=None, target=None):\n"
+    "        if name.split('.')[0] in ('agc_tpu', 'jax', 'jaxlib'):\n"
+    "            raise ImportError(f'blocked: {name}')\n"
+    "sys.meta_path.insert(0, _Block())\n"
+)
+
+
+def test_port_stands_alone(tmp_path):
+    """With agc_tpu and jax blocked by a sys.meta_path finder, the port
+    imports, creates on the CPU, and extracts byte-equal through its own
+    AGCFile and its own CLI (getcol)."""
+    files = make_collection(tmp_path, random.Random(13), n_samples=1,
+                            contig_lens=(30000, 9000))
+    out = str(tmp_path / "x.agc")
+    got_dir = tmp_path / "got"
+    got_dir.mkdir()
+    code = _BLOCK_REFERENCE + (
+        "import agc_tpu_torch\n"
+        "from agc_tpu_torch.core.compressor import CompressorParams, create_archive\n"
+        "from agc_tpu_torch.cli.main import main\n"
+        f"create_archive({out!r}, {[p for _, p in files]!r}, "
+        "CompressorParams(segment_size=3000), device='cpu')\n"
+        f"with agc_tpu_torch.AGCFile({out!r}) as agc:\n"
+        "    print(agc.GetCtgSeq('s0', 'c2'))\n"
+        f"assert main(['getcol', '-l', '70', '-o', {str(got_dir)!r}, {out!r}]) == 0\n"
+        "assert not [m for m in sys.modules if m.split('.')[0] in ('agc_tpu', 'jax')]\n"
+    )
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["PYTHONPATH"] = REPO
+    res = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, env=env, timeout=300)
+    assert res.returncode == 0, res.stderr[-2000:]
+    assert res.stdout.strip().encode() == _fasta_body(files[1][1], "c2")
+    for sample, path in files:
+        with open(path, "rb") as a, open(got_dir / f"{sample}.fa", "rb") as b:
+            assert a.read() == b.read(), sample
+
+
 def test_chip_smoke_imports_only_the_port():
     """chip_smoke.py drives the port alone: no jax, no agc_tpu module and no
     bench helper may be imported by it directly."""
@@ -174,8 +221,7 @@ def test_chip_smoke_imports_only_the_port():
 
 
 def test_cli_create_then_host_queries(tmp_path, device_match_off, capsys):
-    """The port's CLI: create/append through the port, every other
-    subcommand through agc_tpu's CLI."""
+    """The port's own CLI: create through the port, then a query."""
     from agc_tpu_torch.cli.main import main
 
     files = make_collection(tmp_path, random.Random(9), n_samples=1,
@@ -184,7 +230,7 @@ def test_cli_create_then_host_queries(tmp_path, device_match_off, capsys):
     assert main(["create", "--device", "cpu", "-s", "3000", "-o", out,
                  *[p for _, p in files]]) == 0
     ref = str(tmp_path / "tpu.agc")
-    tpu_create(ref, [p for _, p in files], CompressorParams(segment_size=3000))
+    tpu_create(ref, [p for _, p in files], TpuParams(segment_size=3000))
     assert_same_archive(out, ref)
     capsys.readouterr()
     assert main(["getctg", out, "c1@s0"]) == 0

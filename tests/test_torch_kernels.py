@@ -6,7 +6,9 @@ no tolerance.
   canon_rows_p4;
 - scan_fused  vs scan_fused_pallas (interpret mode) at hits, and vs
   scan_batch_compact_p4's decoded hit vectors, including a cap overflow;
-- the large-table join vs scan_batch_join_global_p4;
+- the large-table join (dir_mix + member_mix) vs scan_batch_join_global_p4,
+  with fills and with a cap overflow;
+- member_mix vs member_mix_pallas (interpret mode); dir_mix vs _dir_halves;
 - greedy_walk (through find_splitter_emissions_packed) vs
   find_splitter_emissions_from_chunks / _batched / _packed;
 - the port's ScanBatcher vs the exact host scan.
@@ -20,7 +22,11 @@ import torch
 import jax.numpy as jnp
 
 from agc_tpu.ops import kmers as JK
-from agc_tpu.ops.pallas_kmers import kmer_core_via_pallas, scan_fused_pallas
+from agc_tpu.ops.pallas_kmers import (
+    kmer_core_via_pallas,
+    member_mix_pallas,
+    scan_fused_pallas,
+)
 from agc_tpu_torch.ops import cuda_kmers as CK
 from agc_tpu_torch.ops import kmers as TK
 from agc_tpu_torch.ops import u64
@@ -117,14 +123,50 @@ def test_scan_join_matches_jax(k):
     jt, tt = _table_pair(np.concatenate(rows), k, 9000)
     assert jt.kind == tt.kind == "join"
     mat = np.stack([TK.pack4_np(r) for r in rows])
-    for cap_total in (2048, 16):
+    for cap_total in (16384, 2048, 16):
         want = np.asarray(
             JK.scan_batch_join_global_p4(jnp.asarray(mat), k, jt.thi, jt.tlo, cap_total)
         )
         got = u64.to_u32(
-            TK.scan_batch_join_global_p4(torch.from_numpy(mat), k, tt.thi, tt.tlo, cap_total)
+            TK.scan_batch_join_global_p4(torch.from_numpy(mat), k, tt.tmix, cap_total)
         )
         assert np.array_equal(got, want)
+        if cap_total < 16384:
+            assert want[0] > cap_total  # the last cap_total members kept
+        else:
+            assert 0 < want[0] < cap_total  # leading fills: gpos -1, halves of 0
+            assert want[1] == 0xFFFFFFFF and want[1 + cap_total] == got[1 + cap_total]
+
+
+@pytest.mark.parametrize("k", [17, 31])
+def test_dir_mix_plain_matches_dir_halves(k):
+    """dir_mix's plain version equals agc_tpu's _dir_halves at every
+    position, invalid ones included (the join's fills read position 0)."""
+    rows = [_chunk(k, 2048), _chunk(k + 5, 2048)]
+    dlo, dhi, valid = CK.dir_mix(_packed(rows), k)
+    for r, codes in enumerate(rows):
+        wl, wh, wv = JK._dir_halves(jnp.asarray(codes), k)
+        assert np.array_equal(u64.to_u32(dlo[r]), np.asarray(wl))
+        assert np.array_equal(u64.to_u32(dhi[r]), np.asarray(wh))
+        assert np.array_equal(valid[r].numpy(), np.asarray(wv))
+
+
+@pytest.mark.parametrize("seed", [5, 6])
+def test_member_mix_plain_matches_pallas(seed):
+    """member_mix against member_mix_pallas (interpret mode), as
+    tests/test_pallas_kmers.py runs it: a table with padding entries and
+    mixes with bit 31 set."""
+    rng = np.random.default_rng(seed)
+    mix = rng.integers(0, 1 << 32, 2048, dtype=np.int64).astype(np.uint32)
+    mix[::3] |= np.uint32(1 << 31)
+    mix[7] = 0xDEADBEEF  # equals the padding value
+    tbl = np.unique(np.concatenate([mix[::37], rng.integers(0, 1 << 32, 40).astype(np.uint32)]))
+    pad = np.full(128, 0xDEADBEEF, dtype=np.uint32)
+    pad[: len(tbl)] = tbl[:128]
+    want = np.asarray(member_mix_pallas(jnp.asarray(mix), jnp.asarray(pad), True))
+    got = CK.member_mix(u64.from_u32(mix), u64.from_u32(np.sort(pad))).numpy()
+    assert np.array_equal(got, want)
+    assert got.sum() > 40 and got[7] and (mix[got] >= np.uint32(1 << 31)).any()
 
 
 def _reference_contigs(seed, lens):
