@@ -1,5 +1,5 @@
 // Greedy singleton splitter walk over a sorted k-mer pool, one block per
-// contig.
+// contig, and the index of the pool's singletons that its lookups use.
 //
 // Replaces the XLA lax.while_loop _greedy_over_canon in singleton mode
 // (agc_tpu/ops/kmers.py:599-733, reached through splitter_greedy_canon_*
@@ -17,134 +17,377 @@
 // tail_kmer], positions relative to the contig start, kmers in the
 // flipped convention, tail_pos = INT64_MAX when the contig has no hit.
 //
-// What bounds it on the H100: latency. Each step is a window of 256
-// positions probed in parallel, one thread each, by a binary search of
-// the pool in device memory (26 dependent loads for a 64 M pool); a
-// ballot picks the first (or, for the tail, last) hit of the window.
-// Singleton hits are dense in real references, so nearly every step
-// emits; one contig occupies one SM, so many-contig references fill the
-// card and a single chromosome is a latency-bound walk of about
-// length / seg steps.
+// What bounds it on the H100: latency. Emission j+1 starts seg past
+// emission j, so a contig's walk is a chain of dependent steps, and its
+// time is the number of serial rounds times the time of one round. The
+// kernel this one replaces probed one 256-position window a step on one
+// SM, each position a binary search of the whole pool in device memory
+// (26-28 dependent loads over a 64 M to 172 M-entry pool that the 50 MB
+// L2 does not hold), about 10-12 us an emission. This design cuts the
+// round's latency, the round's width in time, and the number of rounds:
+//
+// - A probe is a constant expected number of dependent loads. The walk
+//   index is built once a walk, in three streaming passes:
+//   singles_count_kernel and singles_write_kernel compact the pool's
+//   singletons (sorted, distinct, coalesced), and dir_kernel writes a
+//   directory of 2^bits + 1 u32 offsets into them over the top `bits`
+//   bits of the unsigned code, bits = ceil(log2 S), so a bucket holds
+//   under one singleton on average. A probe loads its bucket's two bounds
+//   and compares the value with the bucket's entries, kScan at once: two
+//   dependent device-memory loads after the code's. Repeated k-mers, deep
+//   runs of equal values in the pool, are not in the index; the canonical
+//   codes' skew toward A-rich prefixes makes the densest buckets about
+//   twice the mean, and a larger bucket is halved first. A hash set of
+//   the singletons would save the bounds' load, but its build (random
+//   inserts) is slower than these passes.
+// - A round probes kSpec = 16 windows of kWin = 512 positions at t,
+//   t+seg, ..., t+15*seg, speculatively, as agc_tpu's _GREEDY_SPEC loop
+//   does (kmers.py:650-687), and commits them in order: window i's
+//   eligible hits are those at or after D, the in-window offset of the
+//   previous commit (the previous emission p = t+(i-1)*seg+D, so
+//   p+seg = t+i*seg+D, whether or not the windows overlap). The first
+//   window with no eligible hit ends the round, which resumes at that
+//   window's end; so does `cap`. D only grows within a round, by each
+//   step's distance from its start to its hit, so a round commits at
+//   most about kWin over that distance: wide windows, few of them.
+// - One SM keeps only so many random loads in flight, so a round's 8192
+//   lookups are spread over a cluster of kCluster = 8 blocks on 8 SMs
+//   (two lookups a lane, in flight together); the blocks meet at two
+//   cluster barriers a round and exchange the window masks and the
+//   round's end through distributed shared memory.
+#include <cooperative_groups.h>
+
 #include "kmer_common.cuh"
+
+namespace cg = cooperative_groups;
 
 namespace agc {
 namespace {
 
-constexpr int kWindow = kThreads;
+constexpr int kCluster = 8;   // blocks (SMs) that walk one contig together
+constexpr int kWarps = 16;    // warps a block
+constexpr int kWalkThreads = 32 * kWarps;
+constexpr int kPer = 2;       // positions a lane, their lookups in flight together
+constexpr int kWarpsWin = 8;  // warps a window
+constexpr int kWin = 32 * kPer * kWarpsWin;           // positions a window
+constexpr int kWords = kWin / 32;                     // mask words a window
+constexpr int kSpec = kCluster * kWarps / kWarpsWin;  // windows a round
+constexpr int kBack = kCluster * kWalkThreads * kPer;  // positions a tail step
+constexpr int kScan = 4;  // bucket entries compared at once
+constexpr int kIndexThreads = 256;
+constexpr int kIndexPer = 16;  // pool entries a thread of the build, strided
+constexpr int kIndexTile = kIndexThreads * kIndexPer;
 
-__device__ __forceinline__ bool pool_singleton(const int64_t* __restrict__ pool,
-                                               int64_t P, int64_t v) {
-  if (v == INT64_MAX) return false;
-  int64_t lo = 0, hi = P;
-  while (lo < hi) {
-    const int64_t mid = (lo + hi) >> 1;
-    if (pool[mid] < v) {
-      lo = mid + 1;
-    } else {
-      hi = mid;
-    }
-  }
-  if (lo >= P || pool[lo] != v) return false;
-  return lo + 1 >= P || pool[lo + 1] != v;
+struct Singles {
+  const int64_t* __restrict__ v;     // sorted flipped codes that occur once
+  const uint32_t* __restrict__ dir;  // 2^bits + 1 bucket offsets into v
+  int bits;
+};
+
+__device__ __forceinline__ uint32_t bucket_of(int64_t v, int bits) {
+  return static_cast<uint32_t>(
+      (static_cast<uint64_t>(v) ^ 0x8000000000000000ull) >> (64 - bits));
 }
 
-// Index (0..kWindow-1) of the first (last=false) or last (last=true)
-// thread whose flag is set, or -1; block-uniform result.
-__device__ __forceinline__ int block_pick(bool flag, bool last,
-                                          unsigned* s_mask, int* s_pick) {
-  const unsigned m = __ballot_sync(0xffffffffu, flag);
-  if ((threadIdx.x & 31) == 0) s_mask[threadIdx.x >> 5] = m;
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    int pick = -1;
-    constexpr int nw = kWindow / 32;
-    for (int i = 0; i < nw; ++i) {
-      const int w = last ? nw - 1 - i : i;
-      const unsigned mw = s_mask[w];
-      if (mw) {
-        pick = w * 32 + (last ? 31 - __clz(mw) : __ffs(mw) - 1);
-        break;
+// hit[j] = v[j] is a singleton. The kPer lookups advance together, so
+// their loads are in flight at once.
+__device__ __forceinline__ void lookup(const Singles& s, const int64_t (&v)[kPer],
+                                       bool (&hit)[kPer]) {
+  int64_t lo[kPer], hi[kPer];
+#pragma unroll
+  for (int j = 0; j < kPer; ++j) {
+    lo[j] = hi[j] = 0;
+    if (v[j] != INT64_MAX) {
+      const uint32_t b = bucket_of(v[j], s.bits);
+      lo[j] = s.dir[b];
+      hi[j] = s.dir[b + 1];
+    }
+  }
+  // a bucket holds under one singleton on average; a larger one (a skewed
+  // prefix) is halved until kScan entries are left
+  bool more = true;
+  while (more) {
+    more = false;
+#pragma unroll
+    for (int j = 0; j < kPer; ++j) {
+      if (hi[j] - lo[j] > kScan) {
+        const int64_t mid = (lo[j] + hi[j]) >> 1;
+        if (s.v[mid] < v[j]) {
+          lo[j] = mid + 1;
+        } else {
+          hi[j] = mid + 1;
+        }
+        more |= hi[j] - lo[j] > kScan;
       }
     }
-    *s_pick = pick;
   }
-  __syncthreads();
-  const int pick = *s_pick;
-  __syncthreads();  // s_mask / s_pick are reused by the next call
-  return pick;
+#pragma unroll
+  for (int j = 0; j < kPer; ++j) {
+    bool h = false;
+#pragma unroll
+    for (int q = 0; q < kScan; ++q) {
+      if (lo[j] + q < hi[j]) h |= s.v[lo[j] + q] == v[j];
+    }
+    hit[j] = h;
+  }
 }
 
-__global__ void greedy_walk_kernel(const int64_t* __restrict__ canon,
-                                   const int64_t* __restrict__ starts,
-                                   const int64_t* __restrict__ n_reals,
-                                   const int64_t* __restrict__ pool, int64_t P,
-                                   int64_t seg, int cap,
-                                   int64_t* __restrict__ out) {
-  __shared__ unsigned s_mask[kWindow / 32];
-  __shared__ int s_pick;
-  const int64_t c = blockIdx.x;
+// The offset of a window's first hit at or after d, or -1.
+__device__ __forceinline__ int first_hit(const unsigned* m, int d) {
+  for (int h = d >> 5; h < kWords; ++h) {
+    const unsigned x = h == (d >> 5) ? m[h] & (~0u << (d & 31)) : m[h];
+    if (x) return 32 * h + __ffs(x) - 1;
+  }
+  return -1;
+}
+
+// pool[i] is a singleton: not SENTINEL and unlike both neighbours.
+__device__ __forceinline__ bool single_at(const int64_t* __restrict__ pool,
+                                          int64_t P, int64_t i) {
+  if (i >= P) return false;
+  const int64_t v = pool[i];
+  const int64_t prev = i > 0 ? pool[i - 1] : INT64_MAX;
+  const int64_t next = i + 1 < P ? pool[i + 1] : INT64_MAX;
+  return v != INT64_MAX && v != prev && v != next;
+}
+
+__global__ void __launch_bounds__(kIndexThreads)
+    singles_count_kernel(const int64_t* __restrict__ pool, int64_t P,
+                         int64_t* __restrict__ counts) {
+  __shared__ int s_sum[kIndexThreads / 32];
+  const int64_t base = static_cast<int64_t>(blockIdx.x) * kIndexTile + threadIdx.x;
+  int c = 0;
+#pragma unroll
+  for (int r = 0; r < kIndexPer; ++r) c += single_at(pool, P, base + r * kIndexThreads);
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) c += __shfl_down_sync(0xffffffffu, c, o);
+  if ((threadIdx.x & 31) == 0) s_sum[threadIdx.x >> 5] = c;
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    int64_t total = 0;
+    for (int w = 0; w < kIndexThreads / 32; ++w) total += s_sum[w];
+    counts[blockIdx.x] = total;
+  }
+}
+
+// Writes the tile's singletons in order from ends[tile - 1] (0 for the
+// first tile), ends being the inclusive sums of singles_count_kernel's
+// counts; neighbouring lanes write neighbouring singletons.
+__global__ void __launch_bounds__(kIndexThreads)
+    singles_write_kernel(const int64_t* __restrict__ pool, int64_t P,
+                         const int64_t* __restrict__ ends,
+                         int64_t* __restrict__ singles) {
+  __shared__ int s_cnt[kIndexThreads / 32];
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int64_t base = static_cast<int64_t>(blockIdx.x) * kIndexTile + threadIdx.x;
+  int64_t at = blockIdx.x > 0 ? ends[blockIdx.x - 1] : 0;
+  for (int r = 0; r < kIndexPer; ++r) {
+    const int64_t i = base + r * kIndexThreads;
+    const bool f = single_at(pool, P, i);
+    const unsigned m = __ballot_sync(0xffffffffu, f);
+    if (lane == 0) s_cnt[warp] = __popc(m);
+    __syncthreads();
+    int before = 0, total = 0;
+#pragma unroll
+    for (int w = 0; w < kIndexThreads / 32; ++w) {
+      before += w < warp ? s_cnt[w] : 0;
+      total += s_cnt[w];
+    }
+    if (f) singles[at + before + __popc(m & ((1u << lane) - 1u))] = pool[i];
+    at += total;
+    __syncthreads();  // s_cnt is rewritten by the next step
+  }
+}
+
+// dir[b] = the first singles index whose bucket is >= b, for b in
+// [0, 2^bits]: thread i writes the buckets in (bucket(v[i-1]),
+// bucket(v[i])]; a lane writes a short range itself, the whole warp a
+// long one.
+__global__ void dir_kernel(const int64_t* __restrict__ v, int64_t S, int bits,
+                           uint32_t* __restrict__ dir) {
+  const int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+  int64_t lo = 0, hi = -1;
+  if (i <= S) {
+    lo = i > 0 ? static_cast<int64_t>(bucket_of(v[i - 1], bits)) + 1 : 0;
+    hi = i < S ? static_cast<int64_t>(bucket_of(v[i], bits)) : (1ll << bits);
+  }
+  const bool wide = hi - lo >= 32;
+  if (!wide) {
+    for (int64_t b = lo; b <= hi; ++b) dir[b] = static_cast<uint32_t>(i);
+  }
+  unsigned todo = __ballot_sync(0xffffffffu, wide);
+  const int lane = threadIdx.x & 31;
+  while (todo) {
+    const int src = __ffs(todo) - 1;
+    todo &= todo - 1;
+    const int64_t l = __shfl_sync(0xffffffffu, lo, src);
+    const int64_t h = __shfl_sync(0xffffffffu, hi, src);
+    const uint32_t val = static_cast<uint32_t>(__shfl_sync(0xffffffffu, i, src));
+    for (int64_t b = l + lane; b <= h; b += 32) dir[b] = val;
+  }
+}
+
+// One cluster of kCluster blocks a contig. Block rank 0 holds the round's
+// window masks (every block stores its warps' masks there through
+// distributed shared memory) and its thread 0 commits them; the round's
+// end (t, count) goes back to every block the same way.
+__global__ void __cluster_dims__(kCluster, 1, 1) __launch_bounds__(kWalkThreads)
+    greedy_walk_kernel(const int64_t* __restrict__ canon,
+                       const int64_t* __restrict__ starts,
+                       const int64_t* __restrict__ n_reals, Singles singles,
+                       int64_t seg, int cap, int64_t* __restrict__ out) {
+  // window i's hits: bit b of word h is its position 32h + b (rank 0)
+  __shared__ unsigned s_mask[kSpec * kWords];
+  __shared__ int64_t s_next;
+  __shared__ int s_count;
+  __shared__ long long s_best;
+  __shared__ long long s_tail[kCluster];
+  cg::cluster_group cluster = cg::this_cluster();
+  const unsigned rank = cluster.block_rank();
+  unsigned* r0_mask = cluster.map_shared_rank(s_mask, 0);
+  const int lane = threadIdx.x & 31;
+  const int g = static_cast<int>(rank) * kWarps + (threadIdx.x >> 5);
+  const int win = g / kWarpsWin;
+  const int sub = g % kWarpsWin;
+  const int64_t c = blockIdx.x / kCluster;
   const int64_t* cc = canon + starts[c];
   const int64_t n = n_reals[c];
   int64_t* o = out + c * (3 + 2 * static_cast<int64_t>(cap));
   int64_t t = 0;
   int count = 0;
   while (t < n && count < cap) {
-    const int64_t p = t + threadIdx.x;
-    const int64_t v = p < n ? cc[p] : INT64_MAX;
-    const bool hit = p < n && pool_singleton(pool, P, v);
-    const int pick = block_pick(hit, false, s_mask, &s_pick);
-    if (pick >= 0) {
-      if (static_cast<int>(threadIdx.x) == pick) {
-        o[1 + count] = p;
-        o[1 + cap + count] = v;
-      }
-      ++count;
-      t = t + pick + seg;
-    } else {
-      t += kWindow;
+    const int64_t w0 = t + win * seg + sub * 32 * kPer;
+    int64_t v[kPer];
+    bool hit[kPer];
+#pragma unroll
+    for (int j = 0; j < kPer; ++j) {
+      const int64_t p = w0 + lane + 32 * j;
+      v[j] = p < n ? cc[p] : INT64_MAX;
     }
+    lookup(singles, v, hit);
+#pragma unroll
+    for (int j = 0; j < kPer; ++j) {
+      const unsigned m = __ballot_sync(0xffffffffu, hit[j]);
+      if (lane == 0) r0_mask[win * kWords + sub * kPer + j] = m;
+    }
+    cluster.sync();
+    if (rank == 0 && threadIdx.x == 0) {
+      int64_t next = t;
+      int d = 0;
+      for (int i = 0; i < kSpec; ++i) {
+        const int64_t wi = t + i * seg;
+        d = first_hit(s_mask + i * kWords, d);
+        if (d < 0) {
+          next = wi + kWin;
+          break;
+        }
+        o[1 + count] = wi + d;
+        ++count;
+        next = wi + d + seg;
+        if (count == cap) break;
+      }
+      for (int r = 0; r < kCluster; ++r) {
+        *cluster.map_shared_rank(&s_next, r) = next;
+        *cluster.map_shared_rank(&s_count, r) = count;
+      }
+    }
+    cluster.sync();
+    t = s_next;
+    count = s_count;
   }
-  // rightmost hit: backward windows from the end
-  bool found = false;
-  for (int64_t s = n - kWindow; s > -kWindow; s -= kWindow) {
+  // the emitted k-mers, read once the positions are known
+  for (int64_t k = rank * kWalkThreads + threadIdx.x; k < count;
+       k += kCluster * kWalkThreads) {
+    o[1 + cap + k] = cc[o[1 + k]];
+  }
+  // rightmost hit: backward steps of kBack positions from the end
+  long long tail = -1;
+  for (int64_t s = n - kBack; s > -kBack; s -= kBack) {
     const int64_t off = s > 0 ? s : 0;
-    const int64_t p = off + threadIdx.x;
-    const int64_t v = p < n ? cc[p] : INT64_MAX;
-    const bool hit = p < n && pool_singleton(pool, P, v);
-    const int pick = block_pick(hit, true, s_mask, &s_pick);
-    if (pick >= 0) {
-      if (static_cast<int>(threadIdx.x) == pick) {
-        o[1 + 2 * cap] = p;
-        o[2 + 2 * cap] = v;
+    if (threadIdx.x == 0) s_best = -1;
+    __syncthreads();
+    int64_t v[kPer];
+    bool hit[kPer];
+#pragma unroll
+    for (int j = 0; j < kPer; ++j) {
+      const int64_t p = off + rank * kWalkThreads + threadIdx.x +
+                        static_cast<int64_t>(kCluster) * kWalkThreads * j;
+      v[j] = p < n ? cc[p] : INT64_MAX;
+    }
+    lookup(singles, v, hit);
+    long long best = -1;
+#pragma unroll
+    for (int j = 0; j < kPer; ++j) {
+      if (hit[j]) {
+        best = off + rank * kWalkThreads + threadIdx.x +
+               static_cast<int64_t>(kCluster) * kWalkThreads * j;
       }
-      found = true;
-      break;
     }
+    if (best >= 0) atomicMax(&s_best, best);
+    __syncthreads();
+    if (threadIdx.x < kCluster) cluster.map_shared_rank(s_tail, threadIdx.x)[rank] = s_best;
+    cluster.sync();
+    for (int r = 0; r < kCluster; ++r) tail = s_tail[r] > tail ? s_tail[r] : tail;
+    cluster.sync();  // s_tail and s_best are rewritten by the next step
+    if (tail >= 0) break;
   }
-  if (threadIdx.x == 0) {
+  if (rank == 0 && threadIdx.x == 0) {
     o[0] = count;
-    if (!found) {
-      o[1 + 2 * cap] = INT64_MAX;
-      o[2 + 2 * cap] = 0;
-    }
+    o[1 + 2 * cap] = tail >= 0 ? tail : INT64_MAX;
+    o[2 + 2 * cap] = tail >= 0 ? cc[tail] : 0;
   }
 }
 
 }  // namespace
 }  // namespace agc
 
-// canon: int64[N] flipped codes; starts, n_reals: int64[C]; pool: sorted
-// int64[P]; out: int64[C, 3 + 2 * cap].
+// Pool entries a block of agc_walk_singles_count takes: counts has
+// ceil(P / agc_walk_index_tile()) entries.
+extern "C" int agc_walk_index_tile() { return agc::kIndexTile; }
+
+// pool: sorted int64[P]; counts: int64[ceil(P / tile)], the singletons of
+// each tile.
+extern "C" int agc_walk_singles_count(const int64_t* pool, int64_t P,
+                                      int64_t* counts, void* stream) {
+  using namespace agc;
+  const int64_t tiles = (P + kIndexTile - 1) / kIndexTile;
+  if (tiles > 0) {
+    singles_count_kernel<<<static_cast<unsigned>(tiles), kIndexThreads, 0,
+                           static_cast<cudaStream_t>(stream)>>>(pool, P, counts);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// ends: inclusive sums of the counts, S = ends[tiles - 1] singletons;
+// singles: int64[S]; dir: u32[2^bits + 1], 1 <= bits <= 30, S < 2^32.
+extern "C" int agc_walk_index(const int64_t* pool, int64_t P, const int64_t* ends,
+                              int64_t* singles, int64_t S, int bits,
+                              uint32_t* dir, void* stream) {
+  using namespace agc;
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int64_t tiles = (P + kIndexTile - 1) / kIndexTile;
+  if (tiles > 0) {
+    singles_write_kernel<<<static_cast<unsigned>(tiles), kIndexThreads, 0, st>>>(
+        pool, P, ends, singles);
+  }
+  const int64_t blocks = (S + 1 + kIndexThreads - 1) / kIndexThreads;
+  dir_kernel<<<static_cast<unsigned>(blocks), kIndexThreads, 0, st>>>(singles, S, bits, dir);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// canon: int64[N] flipped codes; starts, n_reals: int64[C]; singles, dir:
+// the walk index of agc_walk_index; out: int64[C, 3 + 2 * cap], zeroed.
 extern "C" int agc_greedy_walk(const int64_t* canon, const int64_t* starts,
                                const int64_t* n_reals, int64_t C,
-                               const int64_t* pool, int64_t P, int64_t seg,
-                               int cap, int64_t* out,
+                               const int64_t* singles, const uint32_t* dir,
+                               int bits, int64_t seg, int cap, int64_t* out,
                                void* stream) {
   using namespace agc;
   if (C > 0) {
-    greedy_walk_kernel<<<static_cast<unsigned>(C), kWindow, 0,
+    greedy_walk_kernel<<<static_cast<unsigned>(C * kCluster), kWalkThreads, 0,
                          static_cast<cudaStream_t>(stream)>>>(
-        canon, starts, n_reals, pool, P, seg, cap, out);
+        canon, starts, n_reals, Singles{singles, dir, bits}, seg, cap, out);
   }
   return static_cast<int>(cudaGetLastError());
 }

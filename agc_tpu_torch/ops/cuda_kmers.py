@@ -1,8 +1,8 @@
 """The port's k-mer kernels: CUDA wrappers and their plain PyTorch versions.
 
-Counterpart of ``agc_tpu/ops/pallas_kmers.py``. Five kernels, each in
-``agc_tpu_torch/csrc`` with a source note on what it replaces, what
-bounds it on the H100 and what its design does about that:
+Counterpart of ``agc_tpu/ops/pallas_kmers.py``. Five kernel sources in
+``agc_tpu_torch/csrc``, each with a note on what it replaces, what bounds
+it on the H100 and what its design does about that:
 
 - ``scan_fused``  (csrc/scan_fused.cu): the whole ``scan_batch_compact_p4``
   (unpack, direct-code ladder, XOR-mix, table membership, hit compaction);
@@ -11,7 +11,9 @@ bounds it on the H100 and what its design does about that:
   splitter discovery; replaces the Pallas ``kmer_halves_pallas`` /
   ``kmer_core_via_pallas`` plus the ``canon_rows_p4`` epilogue.
 - ``greedy_walk`` (csrc/greedy_walk.cu): the singleton greedy splitter
-  walk; replaces the XLA ``lax.while_loop`` ``_greedy_over_canon``.
+  walk; replaces the XLA ``lax.while_loop`` ``_greedy_over_canon``. Its
+  lookups go through an index of the pool's singletons that
+  ``walk_index`` (same source) builds once a walk.
 - ``member_mix``  (csrc/member_mix.cu): membership of precomputed XOR-mixes
   in a sorted mix table; replaces the Pallas ``member_mix_pallas``, and is
   the membership stage of the large-table join.
@@ -43,8 +45,8 @@ from . import u64
 _TILE = 256 * 32
 _MAX_TABLE = 16384  # shared-memory table limit of scan_fused (64 KB)
 
-LAUNCHES = {"scan_fused": 0, "kmer_canon": 0, "greedy_walk": 0,
-            "member_mix": 0, "dir_mix": 0}
+LAUNCHES = {"scan_fused": 0, "kmer_canon": 0, "walk_index": 0,
+            "greedy_walk": 0, "member_mix": 0, "dir_mix": 0}
 _launch_lock = threading.Lock()
 
 
@@ -274,11 +276,12 @@ def greedy_walk_plain(canon, starts, n_reals, pool, seg: int,
 
 def greedy_walk(canon: torch.Tensor, starts: torch.Tensor,
                 n_reals: torch.Tensor, pool: torch.Tensor, seg: int,
-                cap: int) -> torch.Tensor:
+                cap: int, index: tuple | None = None) -> torch.Tensor:
     """Greedy singleton splitter walk, one contig per (start, n_real).
 
     canon: int64[N] flipped canonical codes; starts, n_reals: int64[C];
-    pool: sorted int64[P] (the whole k-mer pool); returns
+    pool: sorted int64[P] (the whole k-mer pool); index: the pool's
+    ``walk_index``, built here when not given; returns
     int64[C, 3 + 2 * cap] = [count, pos[cap], kmer[cap], tail_pos,
     tail_kmer] per contig (unused slots 0; tail_pos INT64_MAX when the
     contig has no singleton)."""
@@ -290,18 +293,88 @@ def greedy_walk(canon: torch.Tensor, starts: torch.Tensor,
     _require(seg >= 1 and cap >= 1, "greedy_walk: seg and cap must be >= 1")
     if canon.device.type == "cpu":
         return greedy_walk_plain(canon, starts, n_reals, pool, seg, cap)
-    _check_cuda("greedy_walk", canon, starts, n_reals, pool)
+    singles, dirs = walk_index(pool) if index is None else index
+    _check_cuda("greedy_walk", canon, starts, n_reals, pool, singles, dirs)
+    bits = index_bits(singles.numel())
+    _require(dirs.dtype == torch.int32 and dirs.numel() == (1 << bits) + 1,
+             "greedy_walk: index is not a walk_index")
     c = starts.numel()
     out = torch.zeros((c, 3 + 2 * cap), dtype=torch.int64, device=canon.device)
     with torch.cuda.device(canon.device):
         rc = _build.lib().agc_greedy_walk(
             canon.data_ptr(), starts.data_ptr(), n_reals.data_ptr(), c,
-            pool.data_ptr(), pool.numel(), seg, cap, out.data_ptr(),
+            singles.data_ptr(), dirs.data_ptr(), bits, seg, cap, out.data_ptr(),
             _stream(canon),
         )
     _build.check(rc, "greedy_walk")
     _count("greedy_walk")
     return out
+
+
+# ---------------------------------------------------------------------------
+# walk_index: the index of the pool's singletons that greedy_walk looks in
+# ---------------------------------------------------------------------------
+
+
+def index_bits(s: int) -> int:
+    """Directory bits for s singletons: ceil(log2 s), within [1, 30] (a
+    4 GB directory at most), so a bucket holds under one on average."""
+    return min(30, max(1, (s - 1).bit_length()))
+
+
+def pool_buckets(values: torch.Tensor, bits: int) -> torch.Tensor:
+    """The top ``bits`` bits of the unsigned codes of flipped int64
+    values: their buckets in a walk index."""
+    return (u64.flip(values) >> (64 - bits)) & ((1 << bits) - 1)
+
+
+def walk_index_plain(pool: torch.Tensor):
+    """Plain version of ``walk_index``: the singletons by neighbour
+    compares, each bucket's first offset by ``searchsorted``."""
+    keep = pool != u64.SENTINEL
+    if pool.numel() > 1:
+        same = pool[1:] == pool[:-1]
+        keep[1:] &= ~same
+        keep[:-1] &= ~same
+    singles = pool[keep]
+    bits = index_bits(singles.numel())
+    keys = torch.arange((1 << bits) + 1, dtype=torch.int64, device=pool.device)
+    return singles, torch.searchsorted(pool_buckets(singles, bits), keys).to(torch.int32)
+
+
+def walk_index(pool: torch.Tensor):
+    """The index of a sorted pool's singletons (values, not SENTINEL, that
+    occur exactly once): (singles int64[S], sorted; dir int32[2^bits + 1],
+    u32 bit patterns), bits = ``index_bits(S)``. dir[b] is the first
+    offset into singles whose bucket (``pool_buckets``) is >= b, so a
+    value v is a singleton iff it lies in singles[dir[b] : dir[b + 1]] for
+    b = its bucket.
+
+    pool: sorted int64[P]; S < 2^32 - 1."""
+    _require(pool.dim() == 1 and pool.dtype == torch.int64,
+             "walk_index: pool must be int64[P]")
+    if pool.device.type == "cpu":
+        return walk_index_plain(pool)
+    _check_cuda("walk_index", pool)
+    p = pool.numel()
+    lib = _build.lib()
+    tile = lib.agc_walk_index_tile()
+    counts = torch.empty(-(-p // tile), dtype=torch.int64, device=pool.device)
+    with torch.cuda.device(pool.device):
+        _build.check(lib.agc_walk_singles_count(pool.data_ptr(), p, counts.data_ptr(),
+                                                _stream(pool)), "walk_index")
+        ends = torch.cumsum(counts, 0)
+        # the singletons' count sizes the outputs: one host sync a walk
+        s = int(ends[-1]) if ends.numel() else 0
+        _require(s < (1 << 32) - 1, f"walk_index: {s} singletons are over the u32 offsets")
+        bits = index_bits(s)
+        singles = torch.empty(s, dtype=torch.int64, device=pool.device)
+        dirs = torch.empty((1 << bits) + 1, dtype=torch.int32, device=pool.device)
+        rc = lib.agc_walk_index(pool.data_ptr(), p, ends.data_ptr(), singles.data_ptr(),
+                                s, bits, dirs.data_ptr(), _stream(pool))
+    _build.check(rc, "walk_index")
+    _count("walk_index")
+    return singles, dirs
 
 
 # ---------------------------------------------------------------------------

@@ -13,7 +13,11 @@ Phases (any failure exits non-zero before the result line):
    time the card could take (``bound_ms``) and, for member_mix, the one
    PyTorch call that computes the same function (torch.isin); the
    large-table join (dir_mix + member_mix) on the card against its plain
-   version on the CPU;
+   version on the CPU; kmer_canon at k = 1, 17, 31, 32 on seam-packed rows
+   with invalid symbols on the tile boundaries, and greedy_walk (with its
+   singleton index, walk_index) on inputs that reach its edge branches:
+   windows without hits, seg below the window width, cap inside a round,
+   short contigs, no singleton, several contigs a launch, bit-63 codes;
 4. the main path: a chr-scale create (one 64 Mbase reference contig with
    repeat families + 2 resequenced samples, default parameters) through
    agc_tpu_torch.core.compressor.create_archive(device="cuda"), with the
@@ -35,9 +39,11 @@ Phases (any failure exits non-zero before the result line):
    counts of that run; the discovery again with every kmer_canon and
    greedy_walk call held against its plain version on the card at this
    path's shapes (chr1-3 rows, whole contigs over the sampled pool) and
-   the plain versions' splitter set equal to the archive's; the device
-   busy share of a profiled create, and every sample extracted byte-equal
-   through agc_tpu_torch.AGCFile.
+   the plain versions' splitter set equal to the archive's; one
+   kmer_canon call on the chr1 row and one walk of chr1 over the sampled
+   pool timed with CUDA events (walk_index and greedy_walk apart); the
+   device busy share of a profiled create, and every sample extracted
+   byte-equal through agc_tpu_torch.AGCFile.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is {"ok": true, "device": {...}}. Without CUDA, or without the
@@ -74,6 +80,7 @@ INT32_OPS_PER_S = 67e12 / 4
 # int32 operations of the rolling direct code a position: shift, OR and
 # mask of the code, and the update of the valid-symbol run
 LADDER_OPS = 4
+SENTINEL = (1 << 63) - 1  # the flipped all-ones code (ops/u64.py)
 
 
 def fail(msg: str) -> None:
@@ -107,6 +114,32 @@ def bound(n_bytes: float, n_ops: float) -> tuple[float, str]:
     t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
     t_ops = n_ops / INT32_OPS_PER_S * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def canon_bound(n_packed: int) -> tuple[float, str]:
+    """kmer_canon over n_packed bytes (2 positions each): the packed input
+    read once, 8 bytes written a position, 20 int32 operations a position
+    (both orientations rolled in 64 bits, the min, shift and flip)."""
+    return bound(n_packed + 16 * n_packed, 40 * n_packed)
+
+
+def walk_bound(positions: int, n_out: int) -> tuple[float, str]:
+    """greedy_walk over `positions` probed positions (walk_positions): each
+    reads its code and one constant-probe lookup of the pool (the entry
+    and its neighbour, two compares); n_out int64 outputs written."""
+    return bound(24 * positions + 8 * n_out, 2 * positions)
+
+
+def index_bound(n_pool: int, singles, dirs) -> tuple[float, str]:
+    """walk_index: the pool read once (8 bytes an entry), the singletons
+    (8 bytes each) and the directory (4 bytes an entry) written once; two
+    compares an entry."""
+    return bound(8 * n_pool + 8 * singles.numel() + 4 * dirs.numel(), 2 * n_pool)
+
+
+def index_err(torch, got, want) -> int:
+    """max_abs_err over walk_index's (singles, dir) pair."""
+    return max(max_abs_err(torch, a, b) for a, b in zip(got, want))
 
 
 def max_abs_err(torch, a, b) -> int:
@@ -191,6 +224,97 @@ def write_fasta(np, path: str, contigs) -> None:
                 f.write(alpha[seq[full * 80 :]].tobytes() + b"\n")
 
 
+def seam_rows(np, rng, seam: int, n_rows: int = 3, length: int = 3 * 8192 + 1234):
+    """Rows as discovery packs them: contigs of 1 to 9000 bases with `seam`
+    invalid symbols between them, padded with invalid symbols to `length`
+    (no multiple of any tile). Row r also has an invalid symbol at (r=0),
+    just before (r=1) or 17 symbols before (r=2, inside the warm-up of
+    the next tile) every 1024th position, so on every tile boundary."""
+    rows = np.full((n_rows, length), 4, dtype=np.uint8)
+    for r in range(n_rows):
+        at = 0
+        while True:
+            n = int(rng.integers(1, 9000))
+            if at + n > length:
+                break
+            rows[r, at : at + n] = rng.integers(0, 4, size=n, dtype=np.uint8)
+            at += n + seam
+        rows[r, np.arange(1024, length, 1024) - (0, 1, 17)[r % 3]] = 4
+    return rows
+
+
+def walk_cases(np, seed: int):
+    """Inputs that reach the greedy walk's edge branches: (name, canon
+    int64[N] in the flipped convention, contigs [(start, n)], sorted int64
+    pool, seg, cap)."""
+    rng = np.random.default_rng(seed)
+    sent = SENTINEL
+
+    def fresh(n):  # distinct with high probability, both signs, never SENTINEL
+        return rng.integers(-(1 << 63), sent, size=n, dtype=np.int64)
+
+    def repeat(canon, share):  # copy values over `share` of the positions
+        at = rng.random(len(canon)) < share
+        canon[at] = canon[rng.integers(0, len(canon), int(at.sum()))]
+        return canon
+
+    cases = []
+    n = 300_000  # 0.2% singletons: most windows hold no hit
+    canon = fresh(2000)[rng.integers(0, 2000, n)]
+    one = rng.random(n) < 0.002
+    canon[one] = fresh(int(one.sum()))
+    cases.append(("mostly duplicates", canon, [(0, n)], np.sort(canon), 1000, n // 1000 + 2))
+    n = 200_000
+    canon = repeat(fresh(n), 0.3)
+    canon[rng.random(n) < 0.05] = sent
+    pool = np.sort(canon)
+    cases.append(("seg = k = 31", canon, [(0, n)], pool, 31, n // 31 + 2))
+    cases.append(("cap 5, inside the first round", canon, [(0, n)], pool, 31, 5))
+    cases.append(("cap 45, inside the second round", canon, [(0, n)], pool, 31, 45))
+    canon = fresh(200)
+    cases.append(("contigs of 40, 1, 63 and 64 positions", canon,
+                  [(0, 40), (50, 1), (60, 63), (130, 64)], np.sort(canon), 31, 4))
+    canon = fresh(5000)
+    canon[::7] = sent
+    cases.append(("no singleton", canon, [(0, 5000)],
+                  np.sort(np.concatenate([canon, canon])), 100, 52))
+    n = 400_000
+    canon = repeat(fresh(n), 0.2)
+    cases.append(("five contigs in one launch", canon,
+                  [(0, 90_000), (90_100, 5), (90_200, 150_000), (240_300, 31), (240_400, 159_600)],
+                  np.sort(canon), 500, n // 500 + 2))
+    n, q = 100_000, 25_000
+    canon = np.empty(n, np.int64)
+    canon[:q] = np.iinfo(np.int64).min + rng.integers(0, 1 << 20, q)
+    canon[q : 2 * q] = rng.integers(-(1 << 20), 1 << 20, q)
+    canon[2 * q : 3 * q] = sent - 1 - rng.integers(0, 1 << 20, q)
+    # a quarter share the top 28 bits of the unsigned code: one large bucket
+    top = np.uint64(int(rng.integers(0, 1 << 28)) << 36)
+    low = rng.integers(0, 1 << 36, n - 3 * q).astype(np.uint64)
+    canon[3 * q :] = ((top | low) ^ np.uint64(1 << 63)).view(np.int64)
+    rng.shuffle(canon)
+    canon = repeat(canon, 0.3)
+    cases.append(("bit 63, one skewed prefix, SENTINELs in the pool", canon, [(0, n)],
+                  np.sort(np.concatenate([canon, np.full(1000, sent)])), 97, n // 97 + 2))
+    return cases
+
+
+def walk_positions(row, n: int, seg: int, cap: int) -> int:
+    """Positions the greedy walk must probe, from its output row [count,
+    pos[cap], kmer[cap], tail_pos, tail_kmer]: each step from its start
+    (0, then the last emission + seg) to its hit, the final scan from the
+    last start to the contig end unless cap stopped the walk, and the
+    tail's backward scan from the end to the rightmost hit."""
+    count = int(row[0])
+    pos = [int(p) for p in row[1 : 1 + count]]
+    starts = [0] + [p + seg for p in pos[:-1]]
+    steps = sum(p - s + 1 for p, s in zip(pos, starts))
+    if count < cap:
+        steps += max(0, n - (pos[-1] + seg if count else 0))
+    tail = int(row[1 + 2 * cap])
+    return steps + (n - tail if tail < n else n)
+
+
 def same_archive(reader_cls, a: str, b: str) -> bool:
     """Archives equal stream for stream and part for part (physical part
     order depends on the async store, so raw bytes are not compared)."""
@@ -232,6 +356,15 @@ def device_time(torch, prof):
     if cur_e is not None:
         busy += cur_e - cur_s
     return busy / 1e3, by_name
+
+
+def print_device(by_name: dict) -> None:
+    """The 12 largest device activities of a profiled run, then every
+    other kernel of the port (named agc::...)."""
+    for i, (name, ms) in enumerate(sorted(by_name.items(), key=lambda kv: -kv[1])):
+        if i < 12 or "agc::" in name:
+            print(f"  device {ms:9.3f} ms  {name[:100]}")
+
 
 def main() -> int:
     import numpy as np
@@ -397,6 +530,20 @@ def main() -> int:
     rng = np.random.default_rng(SEED)
     ref = structured_ref(np, rng, REF_MB << 20)
     k = 31
+    # kmer_canon's hard cases: k = 1, 17, 31 and 32 on seam-packed rows
+    # whose length is no multiple of a tile, invalid symbols on the tile
+    # boundaries; then the main path's shape, one 64 Mi-symbol contig
+    hrng = np.random.default_rng(SEED + 3)
+    hard = torch.from_numpy(
+        np.stack([tk.pack4_np(r) for r in seam_rows(np, hrng, tk._SEAM)])).to(dev)
+    kc_err = 0
+    for hk in (1, 17, 31, 32):
+        e = max_abs_err(torch, ck.kmer_canon(hard, hk), ck.kmer_canon_plain(hard, hk))
+        print(f"kmer_canon hard case k={hk}, {hard.shape[0]} seam-packed rows x "
+              f"{2 * hard.shape[1]} symbols: max_abs_err {e}")
+        check(e == 0, f"kmer_canon disagrees with its plain version at k={hk} ({e})")
+        kc_err = max(kc_err, e)
+    del hard
     cpacked = torch.from_numpy(tk.pack4_np(ref)[None, :]).to(dev)
     canon = ck.kmer_canon(cpacked, k)
     e = max_abs_err(torch, canon, ck.kmer_canon_plain(cpacked, k))
@@ -404,14 +551,35 @@ def main() -> int:
     results["kmer_canon"] = dict(
         source="agc_tpu_torch/csrc/kmer_canon.cu",
         replaces="agc_tpu/ops/pallas_kmers.py:106",
-        max_abs_err=e,
+        max_abs_err=max(kc_err, e),
         ms=cuda_ms(torch, lambda: ck.kmer_canon(cpacked, k), 10),
         plain_ms=cuda_ms(torch, lambda: ck.kmer_canon_plain(cpacked, k), 2),
         library_ms=None,
-        bound=bound(cpacked.numel() + 8 * canon.numel(), 20 * canon.numel()),
+        bound=canon_bound(cpacked.numel()),
         shape=f"1 contig x {len(ref)} symbols, k=31",
     )
     print(f"kmer_canon k=31 n={len(ref)}: max_abs_err {e}")
+
+    # greedy_walk's hard cases, tolerance 0
+    walk_err = 0
+    for name, hcanon, contigs, hpool, hseg, hcap in walk_cases(np, SEED + 4):
+        args = (torch.from_numpy(hcanon).to(dev),
+                torch.tensor([s for s, _ in contigs], dtype=torch.int64, device=dev),
+                torch.tensor([n for _, n in contigs], dtype=torch.int64, device=dev),
+                torch.from_numpy(hpool).to(dev), hseg, hcap)
+        g = ck.greedy_walk(*args)
+        e = max_abs_err(torch, g, ck.greedy_walk_plain(*args))
+        counts, tails = g[:, 0].tolist(), g[:, 1 + 2 * hcap].tolist()
+        print(f"greedy_walk hard case '{name}': seg {hseg}, cap {hcap}, emissions {counts}, "
+              f"tail found {[t != SENTINEL for t in tails]}, max_abs_err {e}")
+        check(e == 0, f"greedy_walk disagrees with its plain version on '{name}' ({e})")
+        e = index_err(torch, ck.walk_index(args[3]), ck.walk_index_plain(args[3]))
+        check(e == 0, f"walk_index disagrees with its plain version on '{name}' ({e})")
+        if name == "no singleton":
+            check(counts == [0] and tails == [SENTINEL], "the no-singleton case found a hit")
+        if name.startswith("cap"):
+            check(counts == [hcap], f"'{name}' did not stop at its cap")
+        walk_err = max(walk_err, e)
 
     flat = canon[0].contiguous()
     pool = tk.sort_kmers(flat)
@@ -419,28 +587,43 @@ def main() -> int:
     reals = torch.full((1,), len(ref), dtype=torch.int64, device=dev)
     seg = max(CompressorParams().segment_size, k)
     cap = len(ref) // seg + 2
-    g = ck.greedy_walk(flat, starts, reals, pool, seg, cap)
+    # the walk's index of the pool's singletons, then the walk over it,
+    # timed apart
+    idx = ck.walk_index(pool)
+    e = index_err(torch, idx, ck.walk_index_plain(pool))
+    check(e == 0, f"walk_index disagrees with its plain version (max_abs_err {e})")
+    results["walk_index"] = dict(
+        source="agc_tpu_torch/csrc/greedy_walk.cu",
+        replaces="agc_tpu/ops/kmers.py:599",
+        max_abs_err=e,
+        ms=cuda_ms(torch, lambda: ck.walk_index(pool), 10),
+        plain_ms=cuda_ms(torch, lambda: ck.walk_index_plain(pool), 2),
+        library_ms=None,
+        bound=index_bound(pool.numel(), *idx),
+        shape=f"pool {pool.numel()}: {idx[0].numel()} singletons, {idx[1].numel()} "
+              "directory entries",
+    )
+    g = ck.greedy_walk(flat, starts, reals, pool, seg, cap, index=idx)
     gp = ck.greedy_walk_plain(flat, starts, reals, pool, seg, cap)
     e = max_abs_err(torch, g, gp)
     check(e == 0, f"greedy_walk disagrees with its plain version (max_abs_err {e})")
     check(int(g[0, 0]) > 100, f"greedy_walk emitted only {int(g[0, 0])} splitters")
-    # the data decides the work: one 256-position window per emission plus
-    # one for the end and one for the tail; each position reads its code
-    # and one constant-probe lookup of the pool (the entry and its
-    # neighbour, two compares)
-    probes = 256 * (int(g[0, 0]) + 2)
+    probes = walk_positions(g[0].tolist(), len(ref), seg, cap)
     results["greedy_walk"] = dict(
         source="agc_tpu_torch/csrc/greedy_walk.cu",
         replaces="agc_tpu/ops/kmers.py:599",
-        max_abs_err=e,
-        ms=cuda_ms(torch, lambda: ck.greedy_walk(flat, starts, reals, pool, seg, cap), 5),
+        max_abs_err=max(walk_err, e),
+        ms=cuda_ms(torch, lambda: ck.greedy_walk(flat, starts, reals, pool, seg, cap, index=idx), 5),
         plain_ms=cuda_ms(torch, lambda: ck.greedy_walk_plain(flat, starts, reals, pool, seg, cap), 2),
         library_ms=None,
-        bound=bound(24 * probes + 8 * g.numel(), 2 * probes),
-        shape=f"1 contig x {len(ref)} positions, pool {pool.numel()}, seg {seg}",
+        bound=walk_bound(probes, g.numel()),
+        shape=f"1 contig x {len(ref)} positions, pool {pool.numel()}, seg {seg}; the walk "
+              "over a built walk_index",
     )
-    print(f"greedy_walk: {int(g[0, 0])} emissions, max_abs_err {e}")
-    del cpacked, canon, flat, pool, g, gp
+    print(f"greedy_walk: {int(g[0, 0])} emissions, {probes} positions to probe, "
+          f"max_abs_err {e}; walk_index {results['walk_index']['ms']:.4f} ms + walk "
+          f"{results['greedy_walk']['ms']:.4f} ms ({card})")
+    del cpacked, canon, flat, pool, idx, g, gp
     torch.cuda.empty_cache()
 
     # -- 4. the main path: chr-scale create --------------------------------
@@ -471,7 +654,7 @@ def main() -> int:
         launches = dict(ck.LAUNCHES)
         print(f"create: {total} bases in {walls[0]:.4f} s = {total / walls[0] / 1e6:.2f} "
               f"Mbases/s ({card}); archive {os.path.getsize(out)} bytes; launches {launches}")
-        for name in ("scan_fused", "kmer_canon", "greedy_walk"):
+        for name in ("scan_fused", "kmer_canon", "walk_index", "greedy_walk"):
             check(launches[name] > 0, f"the create never launched {name}")
             results[name]["launches"] = launches[name]
         walls += [timed_create(CompressorParams()) for _ in range(2)]
@@ -482,8 +665,7 @@ def main() -> int:
         busy, by_name = device_time(torch, prof)
         print(f"profiled create: wall {pwall:.4f} s, device busy {busy:.3f} ms, "
               f"busy share {busy / 1e3 / pwall:.5f} of that run ({card})")
-        for name, ms in sorted(by_name.items(), key=lambda kv: -kv[1])[:12]:
-            print(f"  device {ms:9.3f} ms  {name[:100]}")
+        print_device(by_name)
 
         reader = ArchiveReader(out)
         data, _n = reader.get_part("splitters", 0)
@@ -594,7 +776,7 @@ def main() -> int:
         torch.cuda.synchronize()
         wwall = time.perf_counter() - t0
         wlaunch = dict(ck.LAUNCHES)
-        for name in ("kmer_canon", "greedy_walk", "member_mix", "dir_mix"):
+        for name in ("kmer_canon", "walk_index", "greedy_walk", "member_mix", "dir_mix"):
             check(wlaunch[name] > 0, f"the whole-genome create never launched {name}")
         for name in ("member_mix", "dir_mix"):
             results[name]["launches"] = wlaunch[name]
@@ -615,9 +797,11 @@ def main() -> int:
         # the sampled pool); discovery goes on from the plain outputs, so
         # its splitter set is the plain versions' and must be the archive's
         held = {"kmer_canon": [], "greedy_walk": []}
+        first = {}  # each kernel's first call: chr1
 
         def holding(name, kernel, plain, positions):
             def call(*args):
+                first.setdefault(name, args)
                 got, want = kernel(*args), plain(*args)
                 held[name].append((max_abs_err(torch, got, want), positions(*args)))
                 return want
@@ -648,7 +832,31 @@ def main() -> int:
         print(f"whole-genome splitters: {len(w_got)} in the archive, {len(w_want)} from the "
               f"plain versions on the card ({time.perf_counter() - t0:.1f} s)")
         check(w_got == w_want, "whole-genome splitters differ from the plain versions'")
-        del held, plain_disc
+
+        # one kmer_canon call on the chr1 row and one greedy_walk call of
+        # chr1 over the sampled pool, at this path's shapes
+        cpk, ck_k = first["kmer_canon"]
+        wc = results["kmer_canon"]
+        wc["whole_genome_ms"] = cuda_ms(torch, lambda: ck.kmer_canon(cpk, ck_k), 5)
+        wc["whole_genome_bound_ms"] = canon_bound(cpk.numel())[0]
+        wargs = first["greedy_walk"]
+        w_canon, _s, w_reals, w_pool, w_seg, w_cap = wargs
+        w_idx = ck.walk_index(w_pool)
+        wi = results["walk_index"]
+        wi["whole_genome_ms"] = cuda_ms(torch, lambda: ck.walk_index(w_pool), 5)
+        wi["whole_genome_bound_ms"] = index_bound(w_pool.numel(), *w_idx)[0]
+        g = ck.greedy_walk(*wargs, index=w_idx)
+        probes = walk_positions(g[0].tolist(), int(w_reals[0]), w_seg, w_cap)
+        ww = results["greedy_walk"]
+        ww["whole_genome_ms"] = cuda_ms(torch, lambda: ck.greedy_walk(*wargs, index=w_idx), 5)
+        ww["whole_genome_bound_ms"] = walk_bound(probes, g.numel())[0]
+        print(f"whole-genome chr1: kmer_canon {wc['whole_genome_ms']:.4f} ms over "
+              f"{2 * cpk.numel()} positions (bound {wc['whole_genome_bound_ms']:.4f} ms); "
+              f"walk_index {wi['whole_genome_ms']:.4f} ms over pool {w_pool.numel()} (bound "
+              f"{wi['whole_genome_bound_ms']:.4f} ms); greedy_walk {ww['whole_genome_ms']:.4f} "
+              f"ms, {int(g[0, 0])} emissions, {probes} positions to probe (bound "
+              f"{ww['whole_genome_bound_ms']:.4f} ms) ({card})")
+        del held, first, plain_disc, cpk, wargs, w_canon, w_pool, w_idx, g
         torch.cuda.empty_cache()
 
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -660,8 +868,7 @@ def main() -> int:
         busy, by_name = device_time(torch, prof)
         print(f"whole-genome profiled create: wall {pwall:.4f} s, device busy {busy:.3f} ms, "
               f"busy share {busy / 1e3 / pwall:.5f} of that run ({card})")
-        for name, ms in sorted(by_name.items(), key=lambda kv: -kv[1])[:12]:
-            print(f"  device {ms:9.3f} ms  {name[:100]}")
+        print_device(by_name)
         del prof
         t0 = time.perf_counter()
         with AGCFile(wout) as agc:
@@ -678,7 +885,8 @@ def main() -> int:
         {"name": name, "route": "cuda", "source": r["source"], "replaces": r["replaces"],
          "launches": r["launches"], "max_abs_err": r["max_abs_err"],
          "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound"][0],
-         "bound_by": r["bound"][1], "library_ms": r["library_ms"]}
+         "bound_by": r["bound"][1], "library_ms": r["library_ms"],
+         **{key: v for key, v in r.items() if key.startswith("whole_genome")}}
         for name, r in results.items()
     ]
     for name, r in results.items():
