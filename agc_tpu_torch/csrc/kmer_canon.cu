@@ -25,9 +25,9 @@
 // (a stride of 33 words, so that the 64-bit stores of a half-warp fall on
 // distinct banks); then the block writes the tile with neighbouring
 // threads on neighbouring 8-byte words, 256 contiguous bytes a warp. The
-// tile is the kernel's own (kmer_common.cuh's kTile serves scan_fused and
-// dir_mix): its 35 KB of static shared memory let six blocks share an
-// SM, so that one block's stores overlap another's rolling.
+// tile is the kernel's own (kmer_common.cuh's kTile serves dir_mix): its
+// 35 KB of static shared memory let six blocks share an SM, so that one
+// block's stores overlap another's rolling.
 #include "kmer_common.cuh"
 
 namespace agc {

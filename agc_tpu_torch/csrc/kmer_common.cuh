@@ -11,7 +11,7 @@
 
 namespace agc {
 
-constexpr int kThreads = 256;   // threads per block of the rolling kernels
+constexpr int kThreads = 256;   // threads per block of dir_mix
 constexpr int kPerThread = 32;  // consecutive positions rolled by one thread
 constexpr int kTile = kThreads * kPerThread;  // positions per block
 
@@ -42,19 +42,108 @@ struct DirRoll {
   }
 };
 
-// lower_bound in a sorted u32 table; true when x is present.
-__device__ __forceinline__ bool in_sorted_u32(const uint32_t* t, int n,
-                                              uint32_t x) {
-  int lo = 0, hi = n;
+// Membership in a sorted u32 mix table, with a one-probe filter in front
+// of the search (scan_fused and member_mix). A MixSet is, in u32 words:
+//   - a bitmap of 2^20 bits (128 KiB) in which every table entry sets the
+//     bits (v * kMixC1) >> 12 and (v * kMixC2) >> 12. Built from every
+//     entry, padding and duplicates included, it has no false negative;
+//   - a directory of the table's top d bits (mix_dir_bits): dir[b] is the
+//     first index whose value's top d bits are >= b, b in [0, 2^d].
+// mix_set_build (member_mix.cu) builds its image in device memory once a
+// launch, with a grid of global atomics; each block of a kernel then
+// copies the image into its dynamic shared memory (MixSet::load, 16-byte
+// loads). A mix that misses either bit is no member: two shared loads, no
+// dependent chain, and that is the common case. One that passes is
+// searched in its bucket table[dir[b], dir[b + 1]) in device memory, which
+// L2 holds. The plain model of both is cuda_kmers.mix_filter_plain /
+// mix_dir_plain; agc_mix_set_debug (member_mix.cu) writes what one block
+// loaded, so the card's structures are compared with the model.
+constexpr int kMixFilterLog2 = 20;
+constexpr int kMixFilterWords = 1 << (kMixFilterLog2 - 5);
+constexpr uint32_t kMixC1 = 0x9E3779B1u;
+constexpr uint32_t kMixC2 = 0x85EBCA77u;
+constexpr int kMixDirMaxBits = 14;
+
+// Directory bits for a T-entry table: ceil(log2 T) - 2 within [1, 14], so
+// a bucket holds about four entries (more above 2^16 entries).
+__host__ __device__ __forceinline__ int mix_dir_bits(int64_t T) {
+  int lg = 0;
+  while ((int64_t{1} << lg) < T) ++lg;
+  const int d = lg - 2;
+  return d < 1 ? 1 : (d > kMixDirMaxBits ? kMixDirMaxBits : d);
+}
+
+// u32 words of a MixSet: a multiple of four, so the image and whatever
+// follows it in shared memory stay 16-byte aligned.
+__host__ __device__ __forceinline__ int mix_set_words(int64_t T) {
+  return (kMixFilterWords + (1 << mix_dir_bits(T)) + 1 + 3) & ~3;
+}
+
+__device__ __forceinline__ uint32_t mix_hash(uint32_t v, uint32_t c) {
+  return (v * c) >> (32 - kMixFilterLog2);
+}
+
+// Builds the MixSet image of table u32[T] into image u32[mix_set_words(T)]
+// on stream st.
+cudaError_t mix_set_build(const uint32_t* table, int T, uint32_t* image, cudaStream_t st);
+
+// lower_bound of x in its bucket of the directory; true when x is in the
+// table. Out of line: only the mixes that pass the filter come here.
+static __device__ __noinline__ bool mix_exact(const int32_t* dir, const uint32_t* table,
+                                            int shift, uint32_t x) {
+  const uint32_t b = x >> shift;
+  int lo = dir[b];
+  const int end = dir[b + 1];
+  int hi = end;
   while (lo < hi) {
-    const int mid = (lo + hi) >> 1;
-    if (t[mid] < x) {
+    const int mid = lo + ((hi - lo) >> 1);
+    if (__ldg(table + mid) < x) {
       lo = mid + 1;
     } else {
       hi = mid;
     }
   }
-  return lo < n && t[lo] == x;
+  return lo < end && __ldg(table + lo) == x;
 }
+
+struct MixSet {
+  uint32_t* bits;
+  int32_t* dir;
+  const uint32_t* table;
+  int T;
+  int shift;  // 32 - directory bits
+
+  __device__ MixSet(uint32_t* smem, const uint32_t* table_, int T_)
+      : bits(smem),
+        dir(reinterpret_cast<int32_t*>(smem + kMixFilterWords)),
+        table(table_),
+        T(T_),
+        shift(32 - mix_dir_bits(T_)) {}
+
+  // Copies the image mix_set_build made. Every thread of the block calls
+  // it; it ends synchronised.
+  __device__ void load(const uint32_t* image) {
+    const int n = mix_set_words(T) / 4;
+    const uint4* src = reinterpret_cast<const uint4*>(image);
+    uint4* dst = reinterpret_cast<uint4*>(bits);
+    for (int i = threadIdx.x; i < n; i += blockDim.x) dst[i] = __ldg(src + i);
+    __syncthreads();
+  }
+
+  // False: x is no member. True: x may be one (every member passes).
+  __device__ __forceinline__ bool maybe(uint32_t x) const {
+    const uint32_t h1 = mix_hash(x, kMixC1);
+    const uint32_t h2 = mix_hash(x, kMixC2);
+    return ((bits[h1 >> 5] >> (h1 & 31)) & (bits[h2 >> 5] >> (h2 & 31)) & 1u) != 0;
+  }
+
+  __device__ __forceinline__ bool exact(uint32_t x) const {
+    return mix_exact(dir, table, shift, x);
+  }
+
+  __device__ __forceinline__ bool contains(uint32_t x) const {
+    return maybe(x) && exact(x);
+  }
+};
 
 }  // namespace agc

@@ -21,6 +21,14 @@ it on the H100 and what its design does about that:
   the valid flag per position, which the large-table join reads; replaces
   the XLA ``_dir_halves`` ladder of ``scan_batch_join_global_p4``.
 
+``scan_fused`` and ``member_mix`` test a mix the same way
+(csrc/kmer_common.cuh, ``MixSet``): a 2^20-bit filter in shared memory
+rejects most non-members with two loads, and only the mixes that pass are
+searched, in one bucket of a directory of the table's top bits.
+``mix_filter_plain`` and ``mix_dir_plain`` are the plain model of both
+structures, ``mix_set_plain`` of the test, and ``mix_set_built`` returns
+the structures a block of the card holds.
+
 A wrapper runs its plain version only for tensors on the CPU. For CUDA
 tensors it launches the kernel, or raises: nothing falls back. Each
 wrapper counts its kernel launches in ``LAUNCHES`` (reset with
@@ -40,10 +48,13 @@ import torch
 from . import _build
 from . import u64
 
-# positions per block of the rolling kernels: kThreads * kPerThread in
-# csrc/kmer_common.cuh
-_TILE = 256 * 32
-_MAX_TABLE = 16384  # shared-memory table limit of scan_fused (64 KB)
+_MAX_TABLE = 16384  # scan_fused's table limit: the largest 'cmp' table
+
+# csrc/kmer_common.cuh's MixSet: filter bits, hash multipliers, directory
+MIX_FILTER_LOG2 = 20
+MIX_C1 = 0x9E3779B1
+MIX_C2 = 0x85EBCA77
+_MIX_DIR_MAX_BITS = 14
 
 LAUNCHES = {"scan_fused": 0, "kmer_canon": 0, "walk_index": 0,
             "greedy_walk": 0, "member_mix": 0, "dir_mix": 0}
@@ -178,11 +189,16 @@ def scan_fused(packed2d: torch.Tensor, k: int, table: torch.Tensor,
     t = table.numel()
     _require(1 <= t <= _MAX_TABLE, f"scan_fused: table size {t} not in [1, {_MAX_TABLE}]")
     _require(2 * half < (1 << 31), "scan_fused: rows must be < 2^31 positions")
-    n_tiles = -(-2 * half // _TILE)
-    scratch = torch.empty(2 * b * n_tiles, dtype=torch.int32, device=packed2d.device)
+    lib = _build.lib()
+    tile = lib.agc_scan_fused_tile()
+    n_tiles = -(-2 * half // tile)
+    # the MixSet image; per tile: its hit count, its offset in the row,
+    # one hit mask a thread
+    scratch = torch.empty(lib.agc_mix_set_words(t) + b * n_tiles * (2 + tile // 32),
+                          dtype=torch.int32, device=packed2d.device)
     out = torch.empty((b, 1 + 3 * cap), dtype=torch.int32, device=packed2d.device)
     with torch.cuda.device(packed2d.device):
-        rc = _build.lib().agc_scan_fused(
+        rc = lib.agc_scan_fused(
             packed2d.data_ptr(), b, half, k, table.data_ptr(), t, cap,
             scratch.data_ptr(), out.data_ptr(), _stream(packed2d),
         )
@@ -378,6 +394,94 @@ def walk_index(pool: torch.Tensor):
 
 
 # ---------------------------------------------------------------------------
+# MixSet: the membership test of scan_fused and member_mix
+# ---------------------------------------------------------------------------
+
+
+def mix_hash(v: torch.Tensor, c: int) -> torch.Tensor:
+    """The filter bit of u32 values v (held in int64) for multiplier c:
+    (v * c mod 2^32) >> 12. c is taken in 16-bit halves, so no int64
+    product overflows."""
+    lo = v * (c & 0xFFFF)
+    hi = ((v * (c >> 16)) & 0xFFFF) << 16
+    return ((lo + hi) & u64.M32) >> (32 - MIX_FILTER_LOG2)
+
+
+def mix_filter_plain(table: torch.Tensor) -> torch.Tensor:
+    """The filter of a mix table: int32[2^15] words of a
+    2^20-bit map in which every entry v, padding and duplicates included,
+    sets bits mix_hash(v, MIX_C1) and mix_hash(v, MIX_C2) (bit i is bit
+    i % 32 of word i // 32)."""
+    v = table.to(torch.int64) & u64.M32
+    bits = torch.zeros(1 << MIX_FILTER_LOG2, dtype=torch.int64, device=table.device)
+    for c in (MIX_C1, MIX_C2):
+        bits[mix_hash(v, c)] = 1
+    shifts = torch.arange(32, dtype=torch.int64, device=table.device)
+    return u64.low32((bits.view(-1, 32) << shifts).sum(dim=1))
+
+
+def mix_filter_pass(words: torch.Tensor, mix: torch.Tensor) -> torch.Tensor:
+    """True where both filter bits of a mix are set: every member of the
+    table passes, and so do a few non-members."""
+    m = mix.to(torch.int64) & u64.M32
+    w = words.to(torch.int64) & u64.M32
+    ok = torch.ones(m.shape, dtype=torch.bool, device=mix.device)
+    for c in (MIX_C1, MIX_C2):
+        h = mix_hash(m, c)
+        ok &= ((w[h >> 5] >> (h & 31)) & 1) == 1
+    return ok
+
+
+def mix_dir_bits(t: int) -> int:
+    """Directory bits for a t-entry table: ceil(log2 t) - 2 within
+    [1, 14] (kmer_common.cuh's mix_dir_bits)."""
+    return min(_MIX_DIR_MAX_BITS, max(1, (t - 1).bit_length() - 2))
+
+
+def mix_dir_plain(table: torch.Tensor) -> torch.Tensor:
+    """The directory of a sorted mix table: int32[2^d + 1], entry b the
+    first index whose value's top d bits are >= b (d = mix_dir_bits)."""
+    d = mix_dir_bits(table.numel())
+    v = table.to(torch.int64) & u64.M32
+    keys = torch.arange((1 << d) + 1, dtype=torch.int64, device=table.device) << (32 - d)
+    return torch.searchsorted(v, keys).to(torch.int32)
+
+
+def mix_set_plain(mix: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
+    """Plain model of the kernels' test: the filter, then a lower bound of
+    each passing mix inside its directory bucket. Equal to
+    ``member_mix_plain``."""
+    v = table.to(torch.int64) & u64.M32
+    m = mix.to(torch.int64) & u64.M32
+    d = mix_dir_bits(table.numel())
+    dirs = mix_dir_plain(table).to(torch.int64)
+    lo, end = dirs[m >> (32 - d)], dirs[(m >> (32 - d)) + 1]
+    ix = torch.minimum(torch.maximum(torch.searchsorted(v, m), lo), end)
+    found = (ix < end) & (v[ix.clamp(max=v.numel() - 1)] == m)
+    return mix_filter_pass(mix_filter_plain(table), mix) & found
+
+
+def mix_set_built(table: torch.Tensor):
+    """(filter words int32[2^15], directory int32[2^d + 1]) of a CUDA mix
+    table as the card builds them and one block loads them into shared
+    memory; for comparison with ``mix_filter_plain`` / ``mix_dir_plain``."""
+    _check_cuda("mix_set_built", table)
+    t = table.numel()
+    _require(table.dtype == torch.int32 and 1 <= t < (1 << 31),
+             "mix_set_built: table must be int32[T], 1 <= T < 2^31")
+    lib = _build.lib()
+    _require(lib.agc_mix_dir_bits(t) == mix_dir_bits(t), "mix_set_built: directory bits differ")
+    image = torch.empty(lib.agc_mix_set_words(t), dtype=torch.int32, device=table.device)
+    words = torch.empty(1 << (MIX_FILTER_LOG2 - 5), dtype=torch.int32, device=table.device)
+    dirs = torch.empty((1 << mix_dir_bits(t)) + 1, dtype=torch.int32, device=table.device)
+    with torch.cuda.device(table.device):
+        rc = lib.agc_mix_set_debug(table.data_ptr(), t, image.data_ptr(), words.data_ptr(),
+                                   dirs.data_ptr(), _stream(table))
+    _build.check(rc, "mix_set_built")
+    return words, dirs
+
+
+# ---------------------------------------------------------------------------
 # member_mix
 # ---------------------------------------------------------------------------
 
@@ -397,10 +501,9 @@ def member_mix(mix: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
     """member[i] = mix[i] in table.
 
     mix: int32[N] (u32 bit patterns); table: int32[T] sorted by unsigned
-    value (``ScanTable.tmix``); returns bool[N]. The kernel holds the
-    table in shared memory when it fits (up to the library's
-    ``agc_member_mix_shared_max()`` entries) and searches it in device
-    memory above."""
+    value (``ScanTable.tmix``); returns bool[N]. Any contiguous int32
+    tensor: a pointer off the 16-byte grid (a slice such as ``mix[1:]``)
+    takes a scalar head."""
     _require(mix.dtype == torch.int32 and mix.dim() == 1,
              "member_mix: mix must be int32[N]")
     _require(table.dtype == torch.int32 and table.dim() == 1,
@@ -410,11 +513,13 @@ def member_mix(mix: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
     _check_cuda("member_mix", mix, table)
     t = table.numel()
     _require(1 <= t < (1 << 31), f"member_mix: table size {t} not in [1, 2^31)")
+    lib = _build.lib()
+    image = torch.empty(lib.agc_mix_set_words(t), dtype=torch.int32, device=mix.device)
     out = torch.empty(mix.shape, dtype=torch.bool, device=mix.device)
     with torch.cuda.device(mix.device):
-        rc = _build.lib().agc_member_mix(
-            mix.data_ptr(), mix.numel(), table.data_ptr(), t, out.data_ptr(),
-            _stream(mix),
+        rc = lib.agc_member_mix(
+            mix.data_ptr(), mix.numel(), table.data_ptr(), t, image.data_ptr(),
+            out.data_ptr(), _stream(mix),
         )
     _build.check(rc, "member_mix")
     _count("member_mix")

@@ -13,16 +13,30 @@ Phases (any failure exits non-zero before the result line):
    time the card could take (``bound_ms``) and, for member_mix, the one
    PyTorch call that computes the same function (torch.isin); the
    large-table join (dir_mix + member_mix) on the card against its plain
-   version on the CPU; kmer_canon at k = 1, 17, 31, 32 on seam-packed rows
-   with invalid symbols on the tile boundaries, and greedy_walk (with its
-   singleton index, walk_index) on inputs that reach its edge branches:
-   windows without hits, seg below the window width, cap inside a round,
-   short contigs, no singleton, several contigs a launch, bit-63 codes;
+   version on the CPU; the membership test of scan_fused and member_mix
+   (MixSet: a 2^20-bit filter and a directory of the table's top bits)
+   as one block builds it on the card, word for word against its plain
+   model, on hard tables (one entry, padding, 0 / 0xFFFFFFFF / bit 31,
+   shared top bits, 16,384 and 58,111-58,113 entries, the join tables),
+   and its pass rates on the main path's mixes; member_mix on mixes equal
+   to every table value, their +-1 neighbours, 0, 0xFFFFFFFF and mixes
+   the filter passes but the table lacks, at n = 1, a slice at offset 1
+   (a pointer off the 16-byte grid), a table slice at offset 1, and
+   n = 32 Mi + 7; scan_fused at k = 1, 17, 31, 32 on seam-packed rows
+   (invalid symbols on the tile boundaries, a length no multiple of a
+   tile), B = 1 and 8, tables of 128 and 16,384 entries, cap 16 (forced
+   overflow) and 256, and a row in which every tile holds kept hits;
+   kmer_canon at k = 1, 17, 31, 32 on seam-packed rows, and greedy_walk
+   (with its singleton index, walk_index) on inputs that reach its edge
+   branches: windows without hits, seg below the window width, cap inside
+   a round, short contigs, no singleton, several contigs a launch, bit-63
+   codes;
 4. the main path: a chr-scale create (one 64 Mbase reference contig with
    repeat families + 2 resequenced samples, default parameters) through
    agc_tpu_torch.core.compressor.create_archive(device="cuda"), with the
    kernel launch counts of that run, two more timed creates, one create
-   under torch.profiler for the device busy share of that same run,
+   under torch.profiler for the device busy share of that same run and
+   the device time of the scan_fused kernels,
    splitters checked against the port's plain versions run on the CPU,
    and every sample extracted byte-equal through agc_tpu_torch.AGCFile;
 5. the port's CLI on the card: `create --device cuda`, then `getctg`;
@@ -42,8 +56,9 @@ Phases (any failure exits non-zero before the result line):
    the plain versions' splitter set equal to the archive's; one
    kmer_canon call on the chr1 row and one walk of chr1 over the sampled
    pool timed with CUDA events (walk_index and greedy_walk apart); the
-   device busy share of a profiled create, and every sample extracted
-   byte-equal through agc_tpu_torch.AGCFile.
+   device busy share of a profiled create and the device time of its
+   member_mix kernels, and every sample extracted byte-equal through
+   agc_tpu_torch.AGCFile.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is {"ok": true, "device": {...}}. Without CUDA, or without the
@@ -243,6 +258,123 @@ def seam_rows(np, rng, seam: int, n_rows: int = 3, length: int = 3 * 8192 + 1234
     return rows
 
 
+def mix_tables(np, rng, join):
+    """Sorted u32 mix tables that are hard for the MixSet: one entry,
+    padding (0xDEADBEEF), 0 / 0xFFFFFFFF / bit 31, values that share their
+    top 12 bits (one directory bucket), sizes that are no power of two,
+    and the engine's join tables `join` ({name: table})."""
+    def rand(n):
+        return rng.integers(0, 1 << 32, n, dtype=np.int64).astype(np.uint32)
+
+    def padded(v, size):
+        return np.sort(np.concatenate([v, np.full(size - len(v), 0xDEADBEEF, np.uint32)]))
+
+    edges = np.array([0, 0xFFFFFFFF, 1 << 31, (1 << 31) - 1], np.uint32)
+    tables = {
+        "T=1": np.array([0x12345678], np.uint32),
+        "T=128, pads": padded(np.unique(rand(40)), 128),
+        "0, 0xFFFFFFFF, bit 31": padded(np.unique(np.concatenate(
+            [edges, rand(60) | np.uint32(1 << 31)])), 128),
+        "shared top bits": padded(np.unique(np.uint32(0xABC00000) | (rand(3000) & np.uint32(0xFFFFF))),
+                                  4096),
+        "T=16384": np.sort(rand(16384)),
+    }
+    tables.update({f"T={t}": np.sort(rand(t)) for t in (58_111, 58_112, 58_113)})
+    tables.update(join)
+    return tables
+
+
+def member_mix_hard(np, torch, ck, u64, dev, rng, tables, join_mix) -> int:
+    """The card's MixSet against its plain model, and member_mix against
+    member_mix_plain, on each table: mixes equal to its values, their +-1
+    neighbours, 0, 0xFFFFFFFF and mixes the filter passes but the table
+    lacks; n = 1, a slice at offset 1, a table slice at offset 1; on the
+    join tables also the join's mixes with 7 more (n = 32 Mi + 7). Returns
+    the largest max_abs_err (checked to be 0)."""
+    worst = 0
+    for name, tn in tables.items():
+        t = u64.from_u32(tn, dev)
+        words, dirs = ck.mix_set_built(t)
+        e = max(max_abs_err(torch, words, ck.mix_filter_plain(t)),
+                max_abs_err(torch, dirs, ck.mix_dir_plain(t)))
+        check(e == 0, f"the card's MixSet differs from its plain model on '{name}' ({e})")
+        probe = u64.from_u32(rng.integers(0, 1 << 32, 1 << 20, dtype=np.int64).astype(np.uint32), dev)
+        false_pass = u64.to_u32(probe[ck.mix_filter_pass(ck.mix_filter_plain(t), probe)
+                                      & ~ck.member_mix_plain(probe, t)])
+        mix = u64.from_u32(np.concatenate([tn, tn + np.uint32(1), tn - np.uint32(1),
+                                           np.array([0, 0xFFFFFFFF], np.uint32), false_pass]), dev)
+        cases = [(mix, t), (mix[1:], t), (mix[:1], t)]
+        if t.numel() > 1:
+            cases.append((mix, t[1:]))
+        if name.startswith("join"):
+            big = torch.cat([join_mix, join_mix[:7]])
+            cases += [(big, t), (big[1:], t)]
+        errs = [max_abs_err(torch, ck.member_mix(m, tt), ck.member_mix_plain(m, tt)) for m, tt in cases]
+        print(f"member_mix hard case '{name}' (T={t.numel()}): MixSet equal to its model, "
+              f"{len(false_pass)} filter false passes of 2^20 random words; sizes "
+              f"{[m.numel() for m, _ in cases]}, max_abs_err {max(errs)}")
+        check(max(errs) == 0, f"member_mix disagrees with its plain version on '{name}' ({errs})")
+        worst = max(worst, e, *errs)
+    return worst
+
+
+def scan_fused_hard(np, torch, ck, tk, dev, rng, tile: int) -> int:
+    """scan_fused against scan_fused_plain at k = 1, 17, 31, 32 on
+    seam-packed rows, B = 1 and 8, tables of 128 and 16,384 entries, cap
+    16 and 256; then a row in which every tile (`tile` positions) holds
+    kept hits. Returns the largest max_abs_err (checked to be 0)."""
+    rows = seam_rows(np, rng, tk._SEAM, 8, 3 * 32768 + 1234)
+    packed = torch.from_numpy(np.stack([tk.pack4_np(r) for r in rows])).to(dev)
+    worst = 0
+    for k in (1, 17, 31, 32):
+        ud, ur, v = tk.dir_rc_kmers_np(rows[0], k)
+        canon = np.unique(np.minimum(ud, ur)[v])
+        for n_split in (40, 8192):
+            table = tk.make_scan_table(np.sort(canon[:: max(1, len(canon) // n_split)][:n_split]), k, dev)
+            for b in (1, 8):
+                for cap in (16, 256):
+                    got = ck.scan_fused(packed[:b], k, table.tmix, cap)
+                    e = max_abs_err(torch, got, ck.scan_fused_plain(packed[:b], k, table.tmix, cap))
+                    check(e == 0, f"scan_fused disagrees with its plain version at k={k}, "
+                                  f"T={table.tmix.numel()}, B={b}, cap={cap} ({e})")
+                    worst = max(worst, e)
+            print(f"scan_fused hard case k={k}, T={table.tmix.numel()}: B = 1 and 8 seam-packed "
+                  f"rows x {2 * packed.shape[1]} symbols, cap 16 and 256, counts "
+                  f"{got[:, 0].tolist()}, max_abs_err {worst}")
+            if k > 1 and n_split == 8192:
+                check(int(got[0, 0]) > 16, "the forced cap overflow did not overflow")
+    n = 20 * tile + 300
+    row = rng.integers(0, 4, n, dtype=np.uint8)
+    ud, ur, v = tk.dir_rc_kmers_np(row, 31)
+    table = tk.make_scan_table(np.unique(np.minimum(ud, ur)[v])[::3], 31, dev)
+    x = torch.from_numpy(tk.pack4_np(row)[None, :]).to(dev)
+    got = ck.scan_fused(x, 31, table.tmix, n)
+    e = max_abs_err(torch, got, ck.scan_fused_plain(x, 31, table.tmix, n))
+    count = int(got[0, 0])
+    pos = got[0, 1 + n - count : 1 + n].cpu().numpy()
+    tiles = len(np.unique(pos // tile))
+    print(f"scan_fused hard case, every tile kept: 1 row x {n} symbols, {count} hits, all kept, "
+          f"in {tiles} of {-(-n // tile)} tiles of {tile}; max_abs_err {e}")
+    check(e == 0 and tiles == -(-n // tile), f"the every-tile case failed ({e}, {tiles} tiles)")
+    return max(worst, e)
+
+
+def kernel_ms(by_name: dict, names) -> float:
+    """Device ms of a profiled run's kernels whose names hold any of
+    `names`."""
+    return sum(ms for n, ms in by_name.items() if any(x in n for x in names))
+
+
+def kernel_name(name: str) -> str:
+    """A profiler event's kernel name without namespaces and arguments."""
+    return name.replace("(anonymous namespace)::", "").split("(")[0].split("::")[-1].strip()
+
+
+SCAN_KERNELS = ("scan_count_kernel", "scan_offsets_kernel", "scan_emit_kernel",
+                "mix_set_build_kernel")
+MEMBER_KERNELS = ("member_mix_kernel", "mix_set_build_kernel")
+
+
 def walk_cases(np, seed: int):
     """Inputs that reach the greedy walk's edge branches: (name, canon
     int64[N] in the flipped convention, contigs [(start, n)], sorted int64
@@ -367,6 +499,7 @@ def print_device(by_name: dict) -> None:
 
 
 def main() -> int:
+    started = time.perf_counter()
     import numpy as np
     import torch
 
@@ -381,6 +514,7 @@ def main() -> int:
     from agc_tpu_torch.ops import _build
     from agc_tpu_torch.ops import cuda_kmers as ck
     from agc_tpu_torch.ops import kmers as tk
+    from agc_tpu_torch.ops import u64
 
     # -- 1. environment ---------------------------------------------------
     kind = torch.cuda.get_device_name(0)
@@ -432,6 +566,7 @@ def main() -> int:
                 if cap == 16:
                     check(max(counts) > cap, "the forced cap overflow did not overflow")
             if k == 31 and n_splitters == 8192:
+                scan_table = table
                 scan_ms = cuda_ms(torch, lambda: ck.scan_fused(packed, k, table.tmix, tk._SCAN_CAP), 20)
                 plain_ms = cuda_ms(torch, lambda: ck.scan_fused_plain(packed, k, table.tmix, tk._SCAN_CAP), 3)
                 # what the function needs a position: the ladder, the
@@ -441,6 +576,8 @@ def main() -> int:
                     n_pos * (LADDER_OPS + 2),
                 )
     check(err == 0, f"scan_fused disagrees with its plain version (max_abs_err {err})")
+    err = max(err, scan_fused_hard(np, torch, ck, tk, dev, np.random.default_rng(SEED + 5),
+                                   _build.lib().agc_scan_fused_tile()))
     results["scan_fused"] = dict(
         source="agc_tpu_torch/csrc/scan_fused.cu",
         replaces="agc_tpu/ops/pallas_kmers.py:232",
@@ -468,29 +605,44 @@ def main() -> int:
     )
     print(f"dir_mix k=31 8 x {n_scan}: {int(valid.sum())} valid windows, max_abs_err {e}")
 
-    # member_mix on the join's mixes (N = 8 x 4 Mi): the whole-genome
-    # path's 32768-entry table (shared memory) and a whole human
-    # assembly's 131072 entries (device memory)
+    # the filter's pass rate on the main path's mixes: scan_fused's valid
+    # positions against its 16384-entry table (8 x 4 Mi symbols, k=31)
     mix = (dlo ^ dhi).reshape(-1)
-    del dlo, dhi, valid
+    live = mix[valid.reshape(-1)]
+    passing = ck.mix_filter_pass(ck.mix_set_built(scan_table.tmix)[0], live)
+    members = ck.member_mix_plain(live, scan_table.tmix)
+    print(f"MixSet on scan_fused's {live.numel()} valid windows (T={scan_table.tmix.numel()}): "
+          f"pass rate {float(passing.float().mean()):.6f}, false passes "
+          f"{float((passing & ~members).float().mean()):.6f}")
+    del dlo, dhi, valid, live, passing, members
+
+    # member_mix on the join's mixes (N = 8 x 4 Mi): the whole-genome
+    # path's 32768-entry table and a whole human assembly's 131072 entries
     ud, ur, v = tk.dir_rc_kmers_np(rows[0, :1_000_000], k)
     canon = np.unique(np.minimum(ud, ur)[v])
-    mm = {}
-    shared_max = _build.lib().agc_member_mix_shared_max()
-    check(32768 <= shared_max < 131072,
-          f"member_mix's shared-memory limit {shared_max} does not split the two tables")
+    join = {}
     for n_split in (12_000, 40_000):
         pick = np.sort(canon[:: len(canon) // n_split][:n_split])
         tbl = tk.make_scan_table(pick, k, dev).tmix
+        join[f"join T={tbl.numel()}"] = u64.to_u32(tbl)
+    mm_err = member_mix_hard(np, torch, ck, u64, dev, np.random.default_rng(SEED + 6),
+                             mix_tables(np, np.random.default_rng(SEED + 7), join), mix)
+    mm = {}
+    for tn in join.values():
+        tbl = u64.from_u32(tn, dev)
         t_size = tbl.numel()
         want = ck.member_mix_plain(mix, tbl)
         e = max(max_abs_err(torch, ck.member_mix(mix, tbl), want),
                 max_abs_err(torch, torch.isin(mix, tbl), want))  # the library agrees
-        branch = "shared memory" if t_size <= shared_max else "device memory"
         check(e == 0, f"member_mix disagrees with its plain version (table {t_size}, "
                       f"max_abs_err {e})")
+        passing = ck.mix_filter_pass(ck.mix_set_built(tbl)[0], mix)
+        print(f"MixSet on the join's {mix.numel()} mixes (T={t_size}, {tbl.unique().numel()} "
+              f"distinct): pass rate {float(passing.float().mean()):.6f}, false passes "
+              f"{float((passing & ~want).float().mean()):.6f}")
+        del passing
         mm[t_size] = dict(
-            max_abs_err=e,
+            max_abs_err=max(e, mm_err),
             ms=cuda_ms(torch, lambda: ck.member_mix(mix, tbl), 20),
             plain_ms=cuda_ms(torch, lambda: ck.member_mix_plain(mix, tbl), 3),
             library_ms=cuda_ms(torch, lambda: torch.isin(mix, tbl), 3),
@@ -498,18 +650,40 @@ def main() -> int:
             # constant-probe lookup needs no more)
             bound=bound(5 * mix.numel() + 4 * t_size, mix.numel()),
         )
-        print(f"member_mix N={mix.numel()} table={t_size} in {branch}: "
+        print(f"member_mix N={mix.numel()} table={t_size}: "
               f"{int(want.sum())} members, max_abs_err {e}; kernel {mm[t_size]['ms']:.4f} ms, "
               f"plain {mm[t_size]['plain_ms']:.4f} ms, torch.isin "
               f"{mm[t_size]['library_ms']:.4f} ms, bound {mm[t_size]['bound'][0]:.4f} ms ({card})")
     check(sorted(mm) == [32768, 131072], f"member_mix tables {sorted(mm)}")
+    # the device time of each kernel a call launches (the MixSet build
+    # apart from the kernel that uses it), 10 calls under torch.profiler
+    from torch.profiler import ProfilerActivity, profile
+
+    t32, t128 = (u64.from_u32(join[f"join T={t}"], dev) for t in (32768, 131072))
+    for label, call in (
+        ("member_mix, T=32768", lambda: ck.member_mix(mix, t32)),
+        ("member_mix, T=131072", lambda: ck.member_mix(mix, t128)),
+        ("scan_fused, 8 x 4 Mi, T=16384",
+         lambda: ck.scan_fused(packed, 31, scan_table.tmix, tk._SCAN_CAP)),
+    ):
+        call()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(10):
+                call()
+            torch.cuda.synchronize()
+        by_kernel = device_time(torch, prof)[1]
+        print(f"{label}, per call: " + "; ".join(
+            f"{kernel_name(name)} {ms / 10:.4f} ms"
+            for name, ms in sorted(by_kernel.items(), key=lambda kv: -kv[1])) + f" ({card})")
     results["member_mix"] = dict(
         source="agc_tpu_torch/csrc/member_mix.cu",
         replaces="agc_tpu/ops/pallas_kmers.py:333",
         **mm[32768],
-        shape=f"{mix.numel()} mixes, 32768-entry table (shared memory)",
+        large_table_ms=mm[131072]["ms"],
+        shape=f"{mix.numel()} mixes, 32768-entry table",
     )
-    del mix
+    del mix, t32, t128
 
     # the large-table join: dir_mix + member_mix on the card against the
     # plain versions on the CPU, tolerance 0
@@ -627,8 +801,6 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # -- 4. the main path: chr-scale create --------------------------------
-    from torch.profiler import ProfilerActivity, profile
-
     tmp = tempfile.mkdtemp(prefix="agc_torch_smoke_")
     try:
         files = [os.path.join(tmp, "ref.fa")]
@@ -666,6 +838,9 @@ def main() -> int:
         print(f"profiled create: wall {pwall:.4f} s, device busy {busy:.3f} ms, "
               f"busy share {busy / 1e3 / pwall:.5f} of that run ({card})")
         print_device(by_name)
+        results["scan_fused"]["chr_scale_profiled_ms"] = kernel_ms(by_name, SCAN_KERNELS)
+        print(f"profiled create: scan_fused kernels {kernel_ms(by_name, SCAN_KERNELS):.3f} ms "
+              f"({', '.join(SCAN_KERNELS)}; {card})")
 
         reader = ArchiveReader(out)
         data, _n = reader.get_part("splitters", 0)
@@ -869,6 +1044,9 @@ def main() -> int:
         print(f"whole-genome profiled create: wall {pwall:.4f} s, device busy {busy:.3f} ms, "
               f"busy share {busy / 1e3 / pwall:.5f} of that run ({card})")
         print_device(by_name)
+        results["member_mix"]["whole_genome_profiled_ms"] = kernel_ms(by_name, MEMBER_KERNELS)
+        print(f"whole-genome profiled create: member_mix kernels "
+              f"{kernel_ms(by_name, MEMBER_KERNELS):.3f} ms ({', '.join(MEMBER_KERNELS)}; {card})")
         del prof
         t0 = time.perf_counter()
         with AGCFile(wout) as agc:
@@ -886,7 +1064,8 @@ def main() -> int:
          "launches": r["launches"], "max_abs_err": r["max_abs_err"],
          "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound"][0],
          "bound_by": r["bound"][1], "library_ms": r["library_ms"],
-         **{key: v for key, v in r.items() if key.startswith("whole_genome")}}
+         **{key: v for key, v in r.items()
+            if key.startswith(("whole_genome", "chr_scale", "large_table"))}}
         for name, r in results.items()
     ]
     for name, r in results.items():
@@ -894,6 +1073,7 @@ def main() -> int:
               f"{r['bound'][0]:.4f} ms ({r['bound'][1]}), library "
               f"{r['library_ms'] if r['library_ms'] is None else round(r['library_ms'], 4)} ms "
               f"({r['shape']}; {card})")
+    print(f"chip_smoke.py: {time.perf_counter() - started:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}))
