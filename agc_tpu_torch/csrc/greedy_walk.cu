@@ -33,7 +33,8 @@
 //   directory of 2^bits + 1 u32 offsets into them over the top `bits`
 //   bits of the unsigned code, bits = ceil(log2 S), so a bucket holds
 //   under one singleton on average. A probe loads its bucket's two bounds
-//   and compares the value with the bucket's entries, kScan at once: two
+//   and compares the value with the bucket's entries, kScan at once
+//   (`lookup`, kmer_common.cuh, which kmer_dir_rc shares): two
 //   dependent device-memory loads after the code's. Repeated k-mers, deep
 //   runs of equal values in the pool, are not in the index; the canonical
 //   codes' skew toward A-rich prefixes makes the densest buckets about
@@ -73,64 +74,9 @@ constexpr int kWin = 32 * kPer * kWarpsWin;           // positions a window
 constexpr int kWords = kWin / 32;                     // mask words a window
 constexpr int kSpec = kCluster * kWarps / kWarpsWin;  // windows a round
 constexpr int kBack = kCluster * kWalkThreads * kPer;  // positions a tail step
-constexpr int kScan = 4;  // bucket entries compared at once
 constexpr int kIndexThreads = 256;
 constexpr int kIndexPer = 16;  // pool entries a thread of the build, strided
 constexpr int kIndexTile = kIndexThreads * kIndexPer;
-
-struct Singles {
-  const int64_t* __restrict__ v;     // sorted flipped codes that occur once
-  const uint32_t* __restrict__ dir;  // 2^bits + 1 bucket offsets into v
-  int bits;
-};
-
-__device__ __forceinline__ uint32_t bucket_of(int64_t v, int bits) {
-  return static_cast<uint32_t>(
-      (static_cast<uint64_t>(v) ^ 0x8000000000000000ull) >> (64 - bits));
-}
-
-// hit[j] = v[j] is a singleton. The kPer lookups advance together, so
-// their loads are in flight at once.
-__device__ __forceinline__ void lookup(const Singles& s, const int64_t (&v)[kPer],
-                                       bool (&hit)[kPer]) {
-  int64_t lo[kPer], hi[kPer];
-#pragma unroll
-  for (int j = 0; j < kPer; ++j) {
-    lo[j] = hi[j] = 0;
-    if (v[j] != INT64_MAX) {
-      const uint32_t b = bucket_of(v[j], s.bits);
-      lo[j] = s.dir[b];
-      hi[j] = s.dir[b + 1];
-    }
-  }
-  // a bucket holds under one singleton on average; a larger one (a skewed
-  // prefix) is halved until kScan entries are left
-  bool more = true;
-  while (more) {
-    more = false;
-#pragma unroll
-    for (int j = 0; j < kPer; ++j) {
-      if (hi[j] - lo[j] > kScan) {
-        const int64_t mid = (lo[j] + hi[j]) >> 1;
-        if (s.v[mid] < v[j]) {
-          lo[j] = mid + 1;
-        } else {
-          hi[j] = mid + 1;
-        }
-        more |= hi[j] - lo[j] > kScan;
-      }
-    }
-  }
-#pragma unroll
-  for (int j = 0; j < kPer; ++j) {
-    bool h = false;
-#pragma unroll
-    for (int q = 0; q < kScan; ++q) {
-      if (lo[j] + q < hi[j]) h |= s.v[lo[j] + q] == v[j];
-    }
-    hit[j] = h;
-  }
-}
 
 // The offset of a window's first hit at or after d, or -1.
 __device__ __forceinline__ int first_hit(const unsigned* m, int d) {

@@ -106,6 +106,69 @@ static __device__ __noinline__ bool mix_exact(const int32_t* dir, const uint32_t
   return lo < end && __ldg(table + lo) == x;
 }
 
+// The walk index of a set of flipped int64 codes (walk_index,
+// greedy_walk.cu): the sorted values that occur once, and a directory of
+// 2^bits + 1 offsets into them over the top `bits` bits of the unsigned
+// code. greedy_walk looks up a pool's singletons in it; kmer_dir_rc
+// (kmer_canon.cu) looks up membership in a set that holds each value once,
+// whose walk index is the whole set.
+struct Singles {
+  const int64_t* __restrict__ v;     // sorted flipped codes that occur once
+  const uint32_t* __restrict__ dir;  // 2^bits + 1 bucket offsets into v
+  int bits;
+};
+
+constexpr int kScan = 4;  // bucket entries compared at once
+
+__device__ __forceinline__ uint32_t bucket_of(int64_t v, int bits) {
+  return static_cast<uint32_t>(
+      (static_cast<uint64_t>(v) ^ 0x8000000000000000ull) >> (64 - bits));
+}
+
+// hit[j] = v[j] is in the index (INT64_MAX, the SENTINEL, never is). The
+// P lookups advance together, so their loads are in flight at once.
+template <int P>
+__device__ __forceinline__ void lookup(const Singles& s, const int64_t (&v)[P],
+                                       bool (&hit)[P]) {
+  int64_t lo[P], hi[P];
+#pragma unroll
+  for (int j = 0; j < P; ++j) {
+    lo[j] = hi[j] = 0;
+    if (v[j] != INT64_MAX) {
+      const uint32_t b = bucket_of(v[j], s.bits);
+      lo[j] = s.dir[b];
+      hi[j] = s.dir[b + 1];
+    }
+  }
+  // a bucket holds under one singleton on average; a larger one (a skewed
+  // prefix) is halved until kScan entries are left
+  bool more = true;
+  while (more) {
+    more = false;
+#pragma unroll
+    for (int j = 0; j < P; ++j) {
+      if (hi[j] - lo[j] > kScan) {
+        const int64_t mid = (lo[j] + hi[j]) >> 1;
+        if (s.v[mid] < v[j]) {
+          lo[j] = mid + 1;
+        } else {
+          hi[j] = mid + 1;
+        }
+        more |= hi[j] - lo[j] > kScan;
+      }
+    }
+  }
+#pragma unroll
+  for (int j = 0; j < P; ++j) {
+    bool h = false;
+#pragma unroll
+    for (int q = 0; q < kScan; ++q) {
+      if (lo[j] + q < hi[j]) h |= s.v[lo[j] + q] == v[j];
+    }
+    hit[j] = h;
+  }
+}
+
 struct MixSet {
   uint32_t* bits;
   int32_t* dir;

@@ -104,6 +104,7 @@ def _bind(lib) -> None:
         vp, i64, i64, i32, vp, i32, i32, vp, vp, vp,
     ]
     lib.agc_kmer_canon.argtypes = [vp, i64, i64, i32, vp, vp]
+    lib.agc_kmer_dir_rc.argtypes = [vp, i64, i64, i32, vp, vp, vp, vp, vp, vp, i32, vp]
     lib.agc_walk_index_tile.argtypes = []
     lib.agc_walk_singles_count.argtypes = [vp, i64, vp, vp]
     lib.agc_walk_index.argtypes = [vp, i64, vp, vp, i64, i32, vp, vp]
@@ -114,7 +115,8 @@ def _bind(lib) -> None:
     lib.agc_mix_dir_bits.argtypes = [i64]
     lib.agc_mix_set_debug.argtypes = [vp, i32, vp, vp, vp, vp]
     lib.agc_dir_mix.argtypes = [vp, i64, i64, i32, vp, vp, vp, vp]
-    for fn in (lib.agc_scan_fused, lib.agc_kmer_canon, lib.agc_walk_index_tile,
+    for fn in (lib.agc_scan_fused, lib.agc_kmer_canon, lib.agc_kmer_dir_rc,
+               lib.agc_walk_index_tile,
                lib.agc_walk_singles_count, lib.agc_walk_index, lib.agc_greedy_walk,
                lib.agc_scan_fused_tile, lib.agc_member_mix, lib.agc_mix_set_words,
                lib.agc_mix_dir_bits, lib.agc_mix_set_debug, lib.agc_dir_mix):

@@ -10,6 +10,10 @@ it on the H100 and what its design does about that:
 - ``kmer_canon``  (csrc/kmer_canon.cu): the canonical pool fill of
   splitter discovery; replaces the Pallas ``kmer_halves_pallas`` /
   ``kmer_core_via_pallas`` plus the ``canon_rows_p4`` epilogue.
+- ``kmer_dir_rc`` (csrc/kmer_canon.cu): all of ``kmer_halves_pallas``'s
+  outputs, the direct and reverse-complement codes a position, with the
+  valid flag and, given a set, membership in it: the dense scan of -f
+  (agc_tpu's ``contig_kmers_dir_rc`` / ``_with_membership``).
 - ``greedy_walk`` (csrc/greedy_walk.cu): the singleton greedy splitter
   walk; replaces the XLA ``lax.while_loop`` ``_greedy_over_canon``. Its
   lookups go through an index of the pool's singletons that
@@ -56,7 +60,7 @@ MIX_C1 = 0x9E3779B1
 MIX_C2 = 0x85EBCA77
 _MIX_DIR_MAX_BITS = 14
 
-LAUNCHES = {"scan_fused": 0, "kmer_canon": 0, "walk_index": 0,
+LAUNCHES = {"scan_fused": 0, "kmer_canon": 0, "kmer_dir_rc": 0, "walk_index": 0,
             "greedy_walk": 0, "member_mix": 0, "dir_mix": 0}
 _launch_lock = threading.Lock()
 
@@ -103,17 +107,22 @@ def unpack4(packed: torch.Tensor) -> torch.Tensor:
 def rolling_codes(codes: torch.Tensor, k: int, with_rc: bool):
     """Unshifted per-position codes of the window ending at each position,
     as int64 bit patterns: dir = sum_t sym[i-t] * 4^t and (optionally)
-    rc = sum_t (3 - sym[i-t]) * 4^(k-1-t). Invalid symbols count as 0;
-    codes at invalid windows are meaningless (see ``valid_windows``)."""
+    rc = sum_t (3 - sym[i-t]) * 4^(k-1-t). Invalid symbols, and symbols
+    before the row's start, count as 0 in dir and as 3 in rc, so rc is
+    always dir's reverse complement (agc_tpu's ``_kmer_core``); codes at
+    invalid windows are meaningless to discovery (see ``valid_windows``)."""
     n = codes.shape[-1]
     sym = torch.where(codes > 3, 0, codes).to(torch.int64)
     d = torch.zeros_like(sym)
     r = torch.zeros_like(sym) if with_rc else None
-    for t in range(min(k, n)):
-        src = sym[..., : n - t]
-        d[..., t:] |= src << (2 * t)
+    for t in range(k):
+        if t < n:
+            src = sym[..., : n - t]
+            d[..., t:] |= src << (2 * t)
+            if with_rc:
+                r[..., t:] |= (3 - src) << (2 * (k - 1 - t))
         if with_rc:
-            r[..., t:] |= (3 - src) << (2 * (k - 1 - t))
+            r[..., : min(t, n)] |= torch.tensor(3, dtype=torch.int64) << (2 * (k - 1 - t))
     return d, r
 
 
@@ -242,6 +251,76 @@ def kmer_canon(packed2d: torch.Tensor, k: int) -> torch.Tensor:
     _build.check(rc, "kmer_canon")
     _count("kmer_canon")
     return out
+
+
+# ---------------------------------------------------------------------------
+# kmer_dir_rc
+# ---------------------------------------------------------------------------
+
+
+def isin_sorted(values: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
+    """values in the sorted ``table`` (both flipped int64), by
+    ``searchsorted``."""
+    if table.numel() == 0:
+        return torch.zeros(values.shape, dtype=torch.bool, device=values.device)
+    ix = torch.searchsorted(table, values).clamp(max=table.numel() - 1)
+    return table[ix] == values
+
+
+def kmer_dir_rc_plain(packed2d: torch.Tensor, k: int, index=None):
+    """Plain version of ``kmer_dir_rc``: ``rolling_codes`` and
+    ``valid_windows`` of the unpacked rows, membership by
+    ``searchsorted`` in the set (``index[0]``)."""
+    codes = unpack4(packed2d)
+    d, r = rolling_codes(codes, k, with_rc=True)
+    sh = 64 - 2 * k
+    udir, urc = u64.flip(d << sh), u64.flip(r << sh)
+    valid = valid_windows(codes, k)
+    member = None
+    if index is not None:
+        member = valid & isin_sorted(torch.minimum(udir, urc), index[0])
+    return udir, urc, valid, member
+
+
+def kmer_dir_rc(packed2d: torch.Tensor, k: int, index=None):
+    """Both orientations' codes per position of nibble-packed rows.
+
+    packed2d: uint8[B, n/2]; index: the ``walk_index`` of a set that holds
+    each value once (its ``singles`` are the set), or None. Returns
+    (udir, urc, valid, member): int64[B, n] flipped left-aligned codes at
+    every position (agc_tpu's ``_kmer_core``), bool[B, n] valid windows,
+    and bool[B, n] ``valid & (min(udir, urc) in the set)``, or None
+    without a set."""
+    _require(packed2d.dim() == 2 and packed2d.dtype == torch.uint8,
+             "kmer_dir_rc: packed2d must be uint8[B, n/2]")
+    _require(1 <= k <= 32, "kmer_dir_rc: k must be in [1, 32]")
+    if packed2d.device.type == "cpu":
+        return kmer_dir_rc_plain(packed2d, k, index)
+    singles = dirs = None
+    if index is not None:
+        singles, dirs = index
+        _check_cuda("kmer_dir_rc", packed2d, singles, dirs)
+        _require(singles.dtype == torch.int64 and dirs.dtype == torch.int32
+                 and dirs.numel() == (1 << index_bits(singles.numel())) + 1,
+                 "kmer_dir_rc: index is not a walk_index")
+    _check_cuda("kmer_dir_rc", packed2d)
+    b, half = packed2d.shape
+    dev = packed2d.device
+    udir = torch.empty((b, 2 * half), dtype=torch.int64, device=dev)
+    urc = torch.empty((b, 2 * half), dtype=torch.int64, device=dev)
+    valid = torch.empty((b, 2 * half), dtype=torch.bool, device=dev)
+    member = None if index is None else torch.empty((b, 2 * half), dtype=torch.bool, device=dev)
+    with torch.cuda.device(dev):
+        rc = _build.lib().agc_kmer_dir_rc(
+            packed2d.data_ptr(), b, half, k, udir.data_ptr(), urc.data_ptr(),
+            valid.data_ptr(), None if member is None else member.data_ptr(),
+            None if singles is None else singles.data_ptr(),
+            None if dirs is None else dirs.data_ptr(),
+            0 if singles is None else index_bits(singles.numel()), _stream(packed2d),
+        )
+    _build.check(rc, "kmer_dir_rc")
+    _count("kmer_dir_rc")
+    return udir, urc, valid, member
 
 
 # ---------------------------------------------------------------------------

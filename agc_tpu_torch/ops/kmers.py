@@ -3,12 +3,13 @@
 
 ``agc_tpu/ops/kmers.py`` imports jax at module level, so its host twins
 are copied here unchanged: ``_revcomp_np``, ``dir_rc_kmers_np``,
-``pack4_np``, the scan-vector decoders,
+``canon_kmers_np``, ``pack4_np``, the scan-vector decoders,
 ``ScanTable`` / ``make_scan_table``, ``scan_members_host`` and
 ``DaemonPool``. The device programs are PyTorch: the membership scans
-(compare-all and large-table join) and discovery (full pool and
-value-sampled) go through the CUDA kernels of ``cuda_kmers`` on CUDA
-tensors and through their plain versions on CPU tensors.
+(compare-all and large-table join), discovery (full pool and
+value-sampled), the candidate tables of -a and -f, and the dense scan of
+-f go through the CUDA kernels of ``cuda_kmers`` on CUDA tensors and
+through their plain versions on CPU tensors.
 
 K-mer value convention (the reference's, so splitter sets are
 interchangeable with reference archives): the canonical code is
@@ -32,7 +33,14 @@ import torch
 from ..native import get_lib
 
 from . import u64
-from .cuda_kmers import dir_mix, greedy_walk, kmer_canon, member_mix, scan_fused
+from .cuda_kmers import (
+    dir_mix,
+    greedy_walk,
+    kmer_canon,
+    kmer_dir_rc,
+    member_mix,
+    scan_fused,
+)
 
 
 def _shift_for(k: int) -> int:
@@ -95,6 +103,33 @@ def dir_rc_kmers_np(codes: np.ndarray, k: int):
     csum_shift[k:] = csum[:-k]
     valid = ((csum - csum_shift) == 0) & (np.arange(n) >= k - 1)
     return res << shift, rc << shift, valid
+
+
+def canon_kmers_np(codes: np.ndarray, k: int):
+    """Host canonical k-mers: (canon, valid), left-aligned u64. Native
+    one-pass rolling kernel when the toolchain is available, numpy
+    otherwise. Used by host splitter discovery and adaptive new-splitter
+    discovery."""
+    n = len(codes)
+    if n < k:  # numpy twin returns empty arrays below one window
+        z = np.zeros(0, np.uint64)
+        return z, np.zeros(0, bool)
+    lib = get_lib()
+    if lib is not None and n:
+        import ctypes
+
+        u8p = ctypes.POINTER(ctypes.c_uint8)
+        u64p = ctypes.POINTER(ctypes.c_uint64)
+        c = np.ascontiguousarray(codes)
+        canon = np.empty(n, dtype=np.uint64)
+        valid = np.empty(n, dtype=np.uint8)
+        lib.kmer_canon_all(
+            c.ctypes.data_as(u8p), n, k,
+            canon.ctypes.data_as(u64p), valid.ctypes.data_as(u8p),
+        )
+        return canon, valid.astype(bool)
+    udir, urc, valid = dir_rc_kmers_np(codes, k)
+    return np.minimum(udir, urc), valid
 
 
 def pack4_np(codes: np.ndarray) -> np.ndarray:
@@ -379,6 +414,73 @@ def sort_kmers(kmers: torch.Tensor) -> torch.Tensor:
     return torch.sort(kmers).values
 
 
+def singleton_filter(sorted_kmers: torch.Tensor):
+    """(singleton, first_of_dup) masks of a sorted array: values that
+    occur exactly once, and the first value of each run of two or more
+    (agc_tpu's singleton_filter; reference: remove_non_singletons,
+    agc_compressor.cpp:664-705)."""
+    x = sorted_kmers
+    n = x.numel()
+    ne_prev = torch.ones(n, dtype=torch.bool, device=x.device)
+    if n > 1:
+        ne_prev[1:] = x[1:] != x[:-1]
+    ne_next = torch.ones(n, dtype=torch.bool, device=x.device)
+    ne_next[:-1] = ne_prev[1:]
+    return ne_prev & ne_next, ne_prev & ~ne_next
+
+
+def candidate_tables(pool: torch.Tensor):
+    """The candidate tables of a sorted flipped k-mer pool: (singletons,
+    duplicated), the values that occur once and one of each value that
+    occurs more often, both sorted, SENTINEL left out (agc_tpu's
+    candidate_tables without its sentinel tails and counts)."""
+    single, first_dup = singleton_filter(pool)
+    live = pool != u64.SENTINEL
+    return pool[single & live], pool[first_dup & live]
+
+
+def _packed_row(codes: np.ndarray, device) -> torch.Tensor:
+    """One contig as one nibble-packed row, uint8[1, ceil(n / 2)], on
+    ``device``."""
+    row = pack4_np(np.ascontiguousarray(codes))
+    return torch.from_numpy(row).to(device)[None, :]
+
+
+def contig_canon(codes: np.ndarray, k: int, device) -> torch.Tensor:
+    """Canonical code per position of one contig, int64[n] (SENTINEL where
+    the window is not valid), in one kmer_canon launch."""
+    return kmer_canon(_packed_row(codes, device), k)[0, : len(codes)]
+
+
+def collect_kmers(codes: np.ndarray, k: int, device) -> torch.Tensor:
+    """All valid canonical k-mers of a contig, unsorted, on ``device``
+    (agc_tpu's collect_kmers / contig_kmers: the same set of values; the
+    contig goes whole through one kmer_canon launch, not in CHUNKs)."""
+    if len(codes) < k:
+        return torch.empty(0, dtype=torch.int64, device=device)
+    canon = contig_canon(codes, k, device)
+    return canon[canon != u64.SENTINEL]
+
+
+def scan_contig(codes: np.ndarray, k: int, index, device):
+    """The dense scan of a whole contig (agc_tpu's scan_contig): per
+    position (canon, udir, urc, valid, member) as host numpy arrays, codes
+    left-aligned u64. ``index``: the ``walk_index`` of a set that holds
+    each value once (every entry of a singleton table is a singleton, so
+    the walk's bucket lookup answers membership), or None for no set. One
+    kmer_dir_rc launch."""
+    n = len(codes)
+    if n == 0:
+        z = np.zeros(0, np.uint64)
+        return z, z.copy(), z.copy(), np.zeros(0, bool), np.zeros(0, bool)
+    udir, urc, valid, member = kmer_dir_rc(_packed_row(codes, device), k, index)
+    udir = u64.to_u64(udir[0, :n])
+    urc = u64.to_u64(urc[0, :n])
+    valid = valid[0, :n].cpu().numpy()
+    member = np.zeros(n, bool) if member is None else member[0, :n].cpu().numpy()
+    return np.minimum(udir, urc), udir, urc, valid, member
+
+
 # ---------------------------------------------------------------------------
 # value-sampled discovery (references over Compressor._POOL_DEVICE_MAX)
 # ---------------------------------------------------------------------------
@@ -466,11 +568,15 @@ def sample_kmers(canon: torch.Tensor, n: int, k: int, frac_bits: int) -> list:
 
 
 def find_splitter_emissions_packed(canon_flat: torch.Tensor, placements,
-                                   k: int, pool: torch.Tensor, seg_size: int):
+                                   k: int, pool: torch.Tensor, seg_size: int,
+                                   index=None):
     """Greedy singleton emissions for every placed contig in ONE launch of
     the greedy-walk kernel. Returns per contig (pos i64[E], kmers u64[E],
     tail_pos or None, tail_kmer), like agc_tpu's
-    find_splitter_emissions_packed."""
+    find_splitter_emissions_packed. ``index``: the pool's walk_index, when
+    the caller has built it. Over a pool that holds each value once the
+    singleton walk is the membership walk of agc_tpu's
+    find_splitter_emissions over that table."""
     # the host walk enforces >= seg_size and >= k spacing (the reference
     # resets its rolling k-mer at each cut); 1 covers format-1.x archives
     seg = max(1, seg_size, k)
@@ -483,7 +589,7 @@ def find_splitter_emissions_packed(canon_flat: torch.Tensor, placements,
     dev = canon_flat.device
     starts = torch.tensor([placements[i][0] for i in idx], dtype=torch.int64, device=dev)
     reals = torch.tensor([placements[i][1] for i in idx], dtype=torch.int64, device=dev)
-    vecs = greedy_walk(canon_flat, starts, reals, pool, seg, cap).cpu()
+    vecs = greedy_walk(canon_flat, starts, reals, pool, seg, cap, index=index).cpu()
     for row, i in enumerate(idx):
         vec = vecs[row]
         count = int(vec[0])

@@ -30,7 +30,12 @@ Phases (any failure exits non-zero before the result line):
    (with its singleton index, walk_index) on inputs that reach its edge
    branches: windows without hits, seg below the window width, cap inside
    a round, short contigs, no singleton, several contigs a launch, bit-63
-   codes;
+   codes; kmer_dir_rc (both orientations' codes, the valid flag and
+   membership in a set through its walk index) at k = 1, 17, 31, 32 on
+   seam-packed rows with invalid symbols on tile boundaries, without a
+   set and with a singleton table, an empty one and one of bit-63 values,
+   then timed at 1 x 64 Mi symbols, k=31, without a set and with the
+   chr-scale pool's singletons;
 4. the main path: a chr-scale create (one 64 Mbase reference contig with
    repeat families + 2 resequenced samples, default parameters) through
    agc_tpu_torch.core.compressor.create_archive(device="cuda"), with the
@@ -44,7 +49,14 @@ Phases (any failure exits non-zero before the result line):
    2 Mbases each): archives equal stream for stream and part for part for
    default parameters, for -c (concatenated genomes), for segment size
    1000 (over 8192 splitters: the large-table join scan) and for segment
-   1000 with value-sampled discovery (_POOL_DEVICE_MAX lowered);
+   1000 with value-sampled discovery (_POOL_DEVICE_MAX lowered); then, on
+   a collection whose samples carry novel contigs (one over 1 Mi bases,
+   later files holding mutated copies first), -a, -f 0.05 and -a -f 0.01
+   with the stress parameters -k 17 -l 15 -s 1000 -b 50000: archives
+   equal, the -a table passing 8192 splitters during the run (scan_fused,
+   then the join), delta-table scans that found hits, kmer_dir_rc
+   launched by the -f runs (those on a collection half the size: their
+   host walks are Python loops over every position);
 7. the whole-genome path: a reference of three contigs with the lengths
    of GRCh38 chr1-chr3 (689,445,510 bases) + 2 resequenced samples,
    default parameters, so discovery is value-sampled (the reference is
@@ -58,7 +70,19 @@ Phases (any failure exits non-zero before the result line):
    pool timed with CUDA events (walk_index and greedy_walk apart); the
    device busy share of a profiled create and the device time of its
    member_mix kernels, and every sample extracted byte-equal through
-   agc_tpu_torch.AGCFile.
+   agc_tpu_torch.AGCFile;
+8. the adaptive create at full width, the slice's main path: the phase 7
+   reference with -a (k=31, segment 60000), its full k-mer pool on the
+   card (over _POOL_DEVICE_MAX), and 2 samples that also carry novel
+   contigs (one of 2 Mbases, over _HOST_NEW_SPLITTERS_MAX, so the card's
+   new-splitter path runs, and eight of 100-500 kbases, the host path;
+   the second sample holds mutated copies of them first): wall,
+   Mbases/s, stage timers, peak device memory, splitters from discovery
+   and added at barriers, launch counts; every kmer_canon and greedy_walk
+   call of the new-splitter path kept during the timed create and held
+   against its plain version on the card after it; discovery's splitters against the port's host full-pool path
+   (_POOL_CARD_MAX lowered to 0) on the same reference; every sample
+   extracted byte-equal.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is {"ok": true, "device": {...}}. Without CUDA, or without the
@@ -136,6 +160,43 @@ def canon_bound(n_packed: int) -> tuple[float, str]:
     read once, 8 bytes written a position, 20 int32 operations a position
     (both orientations rolled in 64 bits, the min, shift and flip)."""
     return bound(n_packed + 16 * n_packed, 40 * n_packed)
+
+
+def dir_rc_bound(n_packed: int, member: bool) -> tuple[float, str]:
+    """kmer_dir_rc over n_packed bytes (2 positions each): 0.5 byte in and
+    17 out a position (two int64 codes and the valid flag), 18 with the
+    member flag (the set's bytes, read by the lookups, are not counted);
+    the two orientations rolled in 64 bits, 20 int32 operations a
+    position."""
+    return bound(n_packed + (36 if member else 34) * n_packed, 40 * n_packed)
+
+
+def dir_rc_hard(np, torch, ck, u64, hard) -> int:
+    """kmer_dir_rc against its plain version at k = 1, 17, 31, 32 on the
+    seam-packed rows `hard`: without a set, with a singleton table (a third
+    of the rows' distinct codes), an empty one, and one of bit-63 values
+    only. Returns the largest max_abs_err (checked to be 0)."""
+    worst = 0
+    for hk in (1, 17, 31, 32):
+        canon = ck.kmer_canon_plain(hard, hk)
+        vals = torch.unique(canon[canon != SENTINEL])
+        high = vals[vals < 0]  # flipped: the unsigned codes with bit 63 set
+        sets = {"none": None, "singletons": vals[::3].contiguous(),
+                "empty": vals[:0].contiguous(), "bit 63": high.contiguous()}
+        for name, table in sets.items():
+            idx = None if table is None else ck.walk_index(table)
+            got = ck.kmer_dir_rc(hard, hk, idx)
+            want = ck.kmer_dir_rc_plain(hard, hk, idx)
+            e = max(max_abs_err(torch, a, b) for a, b in zip(got, want) if a is not None)
+            members = None if got[3] is None else int(got[3].sum())
+            print(f"kmer_dir_rc hard case k={hk}, set '{name}' "
+                  f"({0 if table is None else table.numel()} values): {hard.shape[0]} seam-packed "
+                  f"rows x {2 * hard.shape[1]} symbols, {members} members, max_abs_err {e}")
+            check(e == 0, f"kmer_dir_rc disagrees with its plain version at k={hk}, set {name} ({e})")
+            if name in ("singletons", "bit 63") and table.numel():
+                check(members > 0, f"kmer_dir_rc found no member of the '{name}' set")
+            worst = max(worst, e)
+    return worst
 
 
 def walk_bound(positions: int, n_out: int) -> tuple[float, str]:
@@ -359,6 +420,51 @@ def scan_fused_hard(np, torch, ck, tk, dev, rng, tile: int) -> int:
     return max(worst, e)
 
 
+def without_kmers(np, tk, rng, seq, known, k: int):
+    """`seq` with a base changed at every k-mer window whose canonical code
+    is in the array `known`, until none is: a novel contig that
+    shares no k-mer with the reference cannot hit a reference splitter."""
+    seq = seq.copy()
+    while True:
+        ud, ur, valid = tk.dir_rc_kmers_np(seq, k)
+        at = np.flatnonzero(valid & np.isin(np.minimum(ud, ur), known))
+        if not len(at):
+            return seq
+        seq[at] = (seq[at] + rng.integers(1, 4, len(at))) % 4
+
+
+def adaptive_collection(np, tk, rng, tmp: str, n_ctg: int = 8, n_novel: int = 6,
+                        tag: str = "a"):
+    """Phase 6's input for -a and -f: a reference of 8 contigs (about 5.2
+    Mbases: under 8192 splitters at segment 1000) and two samples. The
+    first holds mutated copies of the reference contigs and novel contigs
+    the reference lacks, one of 1.5 Mbases (over _HOST_NEW_SPLITTERS_MAX)
+    and six of 350-500 kbases, about 4 Mbases in all, that share no k-mer
+    (k=17) with the reference, so that no reference splitter cuts them and
+    their new splitters take the table past 8192; the second holds mutated copies of the novel
+    contigs first, then of the reference contigs, so its first scans run
+    against the table of before the first sample's barrier and only the
+    delta-table scans find the new splitters. `n_ctg` and `n_novel` scale
+    it down (the -f runs: their host walks are Python loops over every
+    position). Returns the three paths."""
+    base = [structured_ref(np, rng, int(n)) for n in rng.integers(400_000, 900_000, n_ctg)]
+    known = []
+    for b in base:
+        ud, ur, valid = tk.dir_rc_kmers_np(b, 17)
+        known.append(np.minimum(ud, ur)[valid])
+    known = np.unique(np.concatenate(known))
+    novel = [without_kmers(np, tk, rng, rng.integers(0, 4, n, dtype=np.uint8), known, 17)
+             for n in [1_500_000, *rng.integers(350_000, 500_000, n_novel)]]
+    ctg = [(f"actg{i}", b) for i, b in enumerate(base)]
+    nov = [(f"anovel{i}", c) for i, c in enumerate(novel)]
+    files = [os.path.join(tmp, f"{tag}{i}.fa") for i in range(3)]
+    write_fasta(np, files[0], ctg)
+    write_fasta(np, files[1], [(n, mutate(np, rng, c)) for n, c in ctg] + nov)
+    write_fasta(np, files[2], [(n, mutate(np, rng, c)) for n, c in nov]
+                + [(n, mutate(np, rng, c)) for n, c in ctg])
+    return files
+
+
 def kernel_ms(by_name: dict, names) -> float:
     """Device ms of a profiled run's kernels whose names hold any of
     `names`."""
@@ -496,6 +602,142 @@ def print_device(by_name: dict) -> None:
     for i, (name, ms) in enumerate(sorted(by_name.items(), key=lambda kv: -kv[1])):
         if i < 12 or "agc::" in name:
             print(f"  device {ms:9.3f} ms  {name[:100]}")
+
+
+def adaptive_create(np, torch, ck, tk, Compressor, CompressorParams, create_archive,
+                    ArchiveReader, AGCFile, results, card, tmp, ref_file, names,
+                    wseqs) -> None:
+    """Phase 8: -a on the phase 7 reference (its full pool on the card) and
+    2 samples with novel contigs. See the module docstring."""
+    rng = np.random.default_rng(SEED + 9)
+    novel = [rng.integers(0, 4, n, dtype=np.uint8)
+             for n in [2_000_000, *rng.integers(100_000, 500_000, 8)]]
+    nnames = [f"novel{i}" for i in range(len(novel))]
+    samples = {
+        "ref": list(zip(names, wseqs["ref"])),
+        "s0": list(zip(names, wseqs["s0"])) + list(zip(nnames, novel)),
+        "s1": [(n, mutate(np, rng, c)) for n, c in zip(nnames, novel)]
+        + list(zip(names, wseqs["s1"])),
+    }
+    os.mkdir(os.path.join(tmp, "adaptive"))
+    files = [ref_file]
+    for sname in ("s0", "s1"):
+        files.append(os.path.join(tmp, "adaptive", f"{sname}.fa"))
+        write_fasta(np, files[-1], samples[sname])
+    atotal = sum(len(c) for cs in samples.values() for _, c in cs)
+    ref_len = sum(len(c) for _, c in samples["ref"])
+    check(ref_len > Compressor._POOL_DEVICE_MAX, "the reference is not over _POOL_DEVICE_MAX")
+    check(ref_len <= Compressor._POOL_CARD_MAX, "the reference is over _POOL_CARD_MAX")
+
+    # each kmer_canon and greedy_walk call of the new-splitter path is kept
+    # (copies of its inputs and output) during the timed create and held
+    # against its plain version on the card after the create's window
+    kept = {"kmer_canon": [], "greedy_walk": []}
+    active = [False]
+
+    def copy(x):
+        return x.clone() if torch.is_tensor(x) else x
+
+    def keeping(name, kernel):
+        def call(*args, **kw):
+            got = kernel(*args, **kw)
+            if active[0]:
+                kept[name].append((tuple(map(copy, args)), copy(got)))
+            return got
+        return call
+
+    real_find = Compressor._find_new_splitters
+
+    def find_held(self, codes):
+        active[0] = len(codes) > self._HOST_NEW_SPLITTERS_MAX
+        try:
+            return real_find(self, codes)
+        finally:
+            active[0] = False
+
+    discovered = []
+    real_determine = Compressor.determine_splitters
+
+    def capture(self, reference_file):
+        real_determine(self, reference_file)
+        discovered.append(set(self._splitter_set))
+
+    saved = tk.kmer_canon, tk.greedy_walk
+    tk.kmer_canon = keeping("kmer_canon", ck.kmer_canon)
+    tk.greedy_walk = keeping("greedy_walk", ck.greedy_walk)
+    Compressor._find_new_splitters = find_held
+    Compressor.determine_splitters = capture
+    out = os.path.join(tmp, "adaptive.agc")
+    try:
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        ck.reset_launches()
+        t0 = time.perf_counter()
+        timers = create_archive(out, files, CompressorParams(adaptive_compression=True,
+                                                             verbosity=1), device=DEVICE)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = dict(ck.LAUNCHES)
+    finally:
+        tk.kmer_canon, tk.greedy_walk = saved
+        Compressor._find_new_splitters = real_find
+        Compressor.determine_splitters = real_determine
+    peak = torch.cuda.max_memory_allocated()
+    reader = ArchiveReader(out)
+    data, n_split = reader.get_part("splitters", 0)
+    reader.close()
+    got = set(np.frombuffer(data, dtype="<u8").tolist())
+    disc = discovered[0]
+    print(f"adaptive create (-a, k=31, segment 60000): {atotal} bases (reference {ref_len}, "
+          f"full pool on the card) in {wall:.4f} s = {atotal / wall / 1e6:.2f} Mbases/s "
+          f"({card}); archive {os.path.getsize(out)} bytes; {len(disc)} splitters from "
+          f"discovery, {n_split - len(disc)} added at barriers; delta-scan hits "
+          f"{timers.units['delta_hits']}; peak device memory {peak} bytes = "
+          f"{peak / ref_len:.2f} bytes a reference position; launches {launches}")
+    print("adaptive stage timers (s): " + json.dumps(
+        {n: round(t, 4) for n, t in sorted(timers.times.items(), key=lambda kv: -kv[1])}))
+    for name in ("kmer_canon", "walk_index", "greedy_walk", "dir_mix", "member_mix"):
+        check(launches[name] > 0, f"the adaptive create never launched {name}")
+        results[name]["adaptive_create_launches"] = launches[name]
+    results["kmer_canon"]["adaptive_peak_bytes"] = peak
+    check(n_split > len(disc) and disc <= got, "the adaptive create added no splitter")
+    plains = {"kmer_canon": ck.kmer_canon_plain, "greedy_walk": ck.greedy_walk_plain}
+    for name, calls in kept.items():
+        errs = [max_abs_err(torch, got, plains[name](*args)) for args, got in calls]
+        print(f"adaptive new-splitter path: {len(errs)} {name} calls against the plain version "
+              f"on the card, max_abs_err {max(errs, default=None)}")
+        check(errs and max(errs) == 0,
+              f"the new-splitter path's {name} calls disagree or never ran ({errs})")
+
+    # the same reference through the port's host full-pool path
+    t0 = time.perf_counter()
+    card_max = Compressor._POOL_CARD_MAX
+    Compressor._POOL_CARD_MAX = 0
+    try:
+        host = Compressor(os.path.join(tmp, "host.agc"), CompressorParams(
+            adaptive_compression=True), reference_file=ref_file, device=DEVICE)
+        host_set = host.splitter_set_snapshot()
+        host_tables = (host.cand_singletons.numel(), host.cand_duplicated.numel())
+        host.abort()
+        del host
+    finally:
+        Compressor._POOL_CARD_MAX = card_max
+    torch.cuda.empty_cache()
+    print(f"adaptive discovery: {len(disc)} splitters on the card, {len(host_set)} from the host "
+          f"full pool (kmer_discover_splitters; tables {host_tables[0]} singletons, "
+          f"{host_tables[1]} duplicated; {time.perf_counter() - t0:.1f} s)")
+    check(host_set == disc, "the card's discovery differs from the host full-pool path")
+
+    t0 = time.perf_counter()
+    alpha = np.frombuffer(ALPHA, dtype=np.uint8)
+    with AGCFile(out) as agc:
+        for sname, contigs in samples.items():
+            for cname, seq in contigs:
+                check(agc.GetCtgSeq(sname, cname).encode("latin-1") == alpha[seq].tobytes(),
+                      f"{cname}@{sname} does not extract byte-equal from the adaptive archive")
+    print(f"adaptive extract: {sum(len(c) for c in samples.values())} contigs of "
+          f"{len(samples)} samples byte-equal ({time.perf_counter() - t0:.1f} s)")
 
 
 def main() -> int:
@@ -717,6 +959,7 @@ def main() -> int:
               f"{2 * hard.shape[1]} symbols: max_abs_err {e}")
         check(e == 0, f"kmer_canon disagrees with its plain version at k={hk} ({e})")
         kc_err = max(kc_err, e)
+    dr_err = dir_rc_hard(np, torch, ck, u64, hard)
     del hard
     cpacked = torch.from_numpy(tk.pack4_np(ref)[None, :]).to(dev)
     canon = ck.kmer_canon(cpacked, k)
@@ -777,6 +1020,32 @@ def main() -> int:
         shape=f"pool {pool.numel()}: {idx[0].numel()} singletons, {idx[1].numel()} "
               "directory entries",
     )
+    # kmer_dir_rc at 1 x 64 Mi symbols, k=31: without a set (the segment
+    # scans of -f) and with the pool's singletons (-f discovery's dense
+    # scan against the singleton table)
+    e = max(max_abs_err(torch, x, y) for x, y in zip(ck.kmer_dir_rc(cpacked, k)[:3],
+                                                     ck.kmer_dir_rc_plain(cpacked, k)[:3]))
+    em = max_abs_err(torch, ck.kmer_dir_rc(cpacked, k, idx)[3],
+                     ck.kmer_dir_rc_plain(cpacked, k, idx)[3])
+    check(e == 0 and em == 0, f"kmer_dir_rc disagrees with its plain version ({e}, {em})")
+    results["kmer_dir_rc"] = dict(
+        source="agc_tpu_torch/csrc/kmer_canon.cu",
+        replaces="agc_tpu/ops/pallas_kmers.py:137",
+        max_abs_err=max(dr_err, e, em),
+        ms=cuda_ms(torch, lambda: ck.kmer_dir_rc(cpacked, k), 10),
+        plain_ms=cuda_ms(torch, lambda: ck.kmer_dir_rc_plain(cpacked, k), 2),
+        library_ms=None,
+        bound=dir_rc_bound(cpacked.numel(), False),
+        member_ms=cuda_ms(torch, lambda: ck.kmer_dir_rc(cpacked, k, idx), 10),
+        member_plain_ms=cuda_ms(torch, lambda: ck.kmer_dir_rc_plain(cpacked, k, idx), 2),
+        member_bound_ms=dir_rc_bound(cpacked.numel(), True)[0],
+        shape=f"1 contig x {len(ref)} symbols, k=31; with a set: the {idx[0].numel()} "
+              "singletons of its pool",
+    )
+    r = results["kmer_dir_rc"]
+    print(f"kmer_dir_rc k=31 n={len(ref)}: max_abs_err {r['max_abs_err']}; {r['ms']:.4f} ms "
+          f"(bound {r['bound'][0]:.4f}), with {idx[0].numel()} singletons {r['member_ms']:.4f} "
+          f"ms (bound {r['member_bound_ms']:.4f}) ({card})")
     g = ck.greedy_walk(flat, starts, reals, pool, seg, cap, index=idx)
     gp = ck.greedy_walk_plain(flat, starts, reals, pool, seg, cap)
     e = max_abs_err(torch, g, gp)
@@ -927,6 +1196,68 @@ def main() -> int:
               "the sampled mode did not give its own splitter set over 8192")
         del base
 
+        # -a, -f and -a -f with the reference CI's stress parameters; the
+        # discovery's splitter count is read by wrapping determine_splitters
+        afiles = adaptive_collection(np, tk, np.random.default_rng(SEED + 8), tmp)
+        ffiles = adaptive_collection(np, tk, np.random.default_rng(SEED + 10), tmp, 4, 2, "f")
+        stress = dict(kmer_length=17, min_match_len=15, segment_size=1000,
+                      pack_cardinality=50000)
+        discovered = []
+        real_determine = Compressor.determine_splitters
+
+        def counting_determine(self, reference_file):
+            real_determine(self, reference_file)
+            discovered.append(set(self._splitter_set))
+
+        Compressor.determine_splitters = counting_determine
+        try:
+            for label, params, lfiles in (
+                ("-a", CompressorParams(adaptive_compression=True, **stress), afiles),
+                ("-f 0.05", CompressorParams(fallback_frac=0.05, **stress), ffiles),
+                ("-a -f 0.01", CompressorParams(adaptive_compression=True,
+                                                fallback_frac=0.01, **stress), ffiles),
+            ):
+                discovered.clear()
+                a, b = os.path.join(tmp, "card.agc"), os.path.join(tmp, "cpu.agc")
+                ck.reset_launches()
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                ctimes = create_archive(a, lfiles, params, device=DEVICE)
+                torch.cuda.synchronize()
+                t_card = time.perf_counter() - t0
+                alaunch = dict(ck.LAUNCHES)
+                t0 = time.perf_counter()
+                create_archive(b, lfiles, params, device="cpu")
+                t_cpu = time.perf_counter() - t0
+                reader = ArchiveReader(a)
+                n_split = reader.get_part("splitters", 0)[1]
+                reader.close()
+                equal = same_archive(ArchiveReader, a, b)
+                n_disc = len(discovered[0])
+                stages = {n: round(ctimes.times[n], 3) for n in (
+                    "splitter_discovery", "scan_collect", "match_contig", "store_encode")}
+                print(f"collection ({label}, -k 17 -l 15 -s 1000 -b 50000; 3 files, novel "
+                      f"contigs, {os.path.getsize(lfiles[0])} reference FASTA bytes): "
+                      f"{n_disc} splitters from discovery, {n_split} at the end; "
+                      f"delta-scan hits {ctimes.units['delta_hits']}; card {t_card:.2f} s "
+                      f"{stages}, CPU {t_cpu:.2f} s; launches {alaunch}; archives equal part "
+                      f"for part: {equal} ({card})")
+                check(equal, f"card and CPU archives differ ({label})")
+                if params.adaptive_compression:
+                    check(n_split > n_disc, f"{label} added no splitter")
+                    check(ctimes.units["delta_hits"] > 0, f"{label}: the delta scans found no hit")
+                if label == "-a":
+                    check(n_disc <= 8192 < n_split,
+                          f"the -a table did not pass 8192 during the run ({n_disc} -> {n_split})")
+                    check(alaunch["scan_fused"] > 0 and alaunch["member_mix"] > 0,
+                          "the -a run did not scan through scan_fused, then the join")
+                if params.fallback_frac:
+                    check(alaunch["kmer_dir_rc"] > 0, f"the {label} run never launched kmer_dir_rc")
+                    if label == "-f 0.05":
+                        results["kmer_dir_rc"]["launches"] = alaunch["kmer_dir_rc"]
+        finally:
+            Compressor.determine_splitters = real_determine
+
         # -- 7. the whole-genome path: sampled discovery and the join -------
         wrng = np.random.default_rng(SEED + 2)
         names = [f"chr{i + 1}" for i in range(len(GRCH38_CHR1_3))]
@@ -975,9 +1306,9 @@ def main() -> int:
         first = {}  # each kernel's first call: chr1
 
         def holding(name, kernel, plain, positions):
-            def call(*args):
+            def call(*args, **kw):
                 first.setdefault(name, args)
-                got, want = kernel(*args), plain(*args)
+                got, want = kernel(*args, **kw), plain(*args)
                 held[name].append((max_abs_err(torch, got, want), positions(*args)))
                 return want
             return call
@@ -1056,6 +1387,10 @@ def main() -> int:
                           f"{cname}@{sname} does not extract byte-equal")
         print(f"whole-genome extract: {len(wseqs)} samples x {len(names)} contigs byte-equal "
               f"({time.perf_counter() - t0:.1f} s)")
+
+        # -- 8. the adaptive create at full width -----------------------------
+        adaptive_create(np, torch, ck, tk, Compressor, CompressorParams, create_archive,
+                        ArchiveReader, AGCFile, results, card, tmp, wfiles[0], names, wseqs)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
@@ -1065,7 +1400,8 @@ def main() -> int:
          "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound"][0],
          "bound_by": r["bound"][1], "library_ms": r["library_ms"],
          **{key: v for key, v in r.items()
-            if key.startswith(("whole_genome", "chr_scale", "large_table"))}}
+            if key.startswith(("whole_genome", "chr_scale", "large_table", "member_",
+                               "adaptive_"))}}
         for name, r in results.items()
     ]
     for name, r in results.items():

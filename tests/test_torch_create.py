@@ -173,11 +173,12 @@ _BLOCK_REFERENCE = (
 
 def test_port_stands_alone(tmp_path):
     """With agc_tpu and jax blocked by a sys.meta_path finder, the port
-    imports, creates on the CPU, and extracts byte-equal through its own
-    AGCFile and its own CLI (getcol)."""
+    imports, creates on the CPU (default mode, then -a -f), and extracts
+    byte-equal through its own AGCFile and its own CLI (getcol)."""
     files = make_collection(tmp_path, random.Random(13), n_samples=1,
                             contig_lens=(30000, 9000))
     out = str(tmp_path / "x.agc")
+    out_af = str(tmp_path / "af.agc")
     got_dir = tmp_path / "got"
     got_dir.mkdir()
     code = _BLOCK_REFERENCE + (
@@ -186,6 +187,11 @@ def test_port_stands_alone(tmp_path):
         "from agc_tpu_torch.cli.main import main\n"
         f"create_archive({out!r}, {[p for _, p in files]!r}, "
         "CompressorParams(segment_size=3000), device='cpu')\n"
+        f"create_archive({out_af!r}, {[p for _, p in files]!r}, CompressorParams("
+        "segment_size=3000, adaptive_compression=True, fallback_frac=0.05), device='cpu')\n"
+        f"with agc_tpu_torch.AGCFile({out_af!r}) as agc:\n"
+        "    assert agc.GetCtgSeq('s0', 'c1') == agc_tpu_torch.AGCFile("
+        f"{out!r}).GetCtgSeq('s0', 'c1')\n"
         f"with agc_tpu_torch.AGCFile({out!r}) as agc:\n"
         "    print(agc.GetCtgSeq('s0', 'c2'))\n"
         f"assert main(['getcol', '-l', '70', '-o', {str(got_dir)!r}, {out!r}]) == 0\n"
@@ -257,10 +263,9 @@ def test_cuda_device_without_cuda_raises(tmp_path):
 @pytest.mark.parametrize(
     "params,env",
     [
-        (CompressorParams(adaptive_compression=True), {}),
-        (CompressorParams(fallback_frac=0.01), {}),
         (CompressorParams(lz_mode="anchor"), {}),
         (CompressorParams(), {"AGC_TPU_DEVICE_MATCH": "1"}),
+        (CompressorParams(), {"AGC_TPU_DEVICE_SPLIT": "1"}),
         (CompressorParams(), {"AGC_TPU_RANS_DEVICE": "1"}),
     ],
 )
