@@ -19,9 +19,9 @@ but any grammar-valid token stream is accepted by the reference decoder, so
 byte-identical encode decisions are not required for interoperability.
 
 The hot inner loops have a pure-Python fallback and a C++ fast path
-(agc_tpu_torch/native, built by g++ at first use). agc_tpu also
-estimates segments against candidates on the device (ops/match.py); the
-port does not have that path yet (ROADMAP A.3).
+(agc_tpu_torch/native, built by g++ at first use). Segment-vs-candidate
+*estimation* is also a batched device kernel (ops/match.py,
+ops/cuda_match.py).
 """
 
 from __future__ import annotations

@@ -35,7 +35,15 @@ Phases (any failure exits non-zero before the result line):
    seam-packed rows with invalid symbols on tile boundaries, without a
    set and with a singleton table, an empty one and one of bit-63 values,
    then timed at 1 x 64 Mi symbols, k=31, without a set and with the
-   chr-scale pool's singletons;
+   chr-scale pool's singletons; match_estimate (the match layer's
+   estimate of (segment row, candidate group) pairs) at key_len 16 and 17,
+   strides 4, 8 and 16, on rows of invalid keys only, hits in the first
+   and last probe block, a run that starts right after the kernel's tile
+   boundary, a one-row bank and a pair on the bank's last row, then at the
+   dispatch shape of a whole-genome prepass (1024 pairs x 16,384 probe
+   blocks, bank rows of 65,536 slots); the match layer's torch-op programs
+   (segment rows, slot tables, split search, anchor join and select) timed
+   at their shapes;
 4. the main path: a chr-scale create (one 64 Mbase reference contig with
    repeat families + 2 resequenced samples, default parameters) through
    agc_tpu_torch.core.compressor.create_archive(device="cuda"), with the
@@ -45,8 +53,9 @@ Phases (any failure exits non-zero before the result line):
    splitters checked against the port's plain versions run on the CPU,
    and every sample extracted byte-equal through agc_tpu_torch.AGCFile;
 5. the port's CLI on the card: `create --device cuda`, then `getctg`;
-6. card against CPU on a collection of 3 files x 24 contigs (20 kbases to
-   2 Mbases each): archives equal stream for stream and part for part for
+6. card against CPU (each CPU create in a process of its own, beside the
+   card's) on a collection of 3 files x 12 contigs (20 kbases to 2
+   Mbases each): archives equal stream for stream and part for part for
    default parameters, for -c (concatenated genomes), for segment size
    1000 (over 8192 splitters: the large-table join scan) and for segment
    1000 with value-sampled discovery (_POOL_DEVICE_MAX lowered); then, on
@@ -67,11 +76,9 @@ Phases (any failure exits non-zero before the result line):
    path's shapes (chr1-3 rows, whole contigs over the sampled pool) and
    the plain versions' splitter set equal to the archive's; one
    kmer_canon call on the chr1 row and one walk of chr1 over the sampled
-   pool timed with CUDA events (walk_index and greedy_walk apart); the
-   device busy share of a profiled create and the device time of its
-   member_mix kernels, and every sample extracted byte-equal through
-   agc_tpu_torch.AGCFile;
-8. the adaptive create at full width, the slice's main path: the phase 7
+   pool timed with CUDA events (walk_index and greedy_walk apart), and
+   every sample extracted byte-equal through agc_tpu_torch.AGCFile;
+8. the adaptive create at full width: the phase 7
    reference with -a (k=31, segment 60000), its full k-mer pool on the
    card (over _POOL_DEVICE_MAX), and 2 samples that also carry novel
    contigs (one of 2 Mbases, over _HOST_NEW_SPLITTERS_MAX, so the card's
@@ -80,11 +87,29 @@ Phases (any failure exits non-zero before the result line):
    Mbases/s, stage timers, peak device memory, splitters from discovery
    and added at barriers, launch counts; every kmer_canon and greedy_walk
    call of the new-splitter path kept during the timed create and held
-   against its plain version on the card after it; discovery's splitters against the port's host full-pool path
-   (_POOL_CARD_MAX lowered to 0) on the same reference; every sample
-   extracted byte-equal.
+   against its plain version on the card after it; discovery's splitters
+   against the port's host full-pool path (_POOL_CARD_MAX lowered to 0)
+   on the same reference; every sample extracted byte-equal;
+9. the match layer at full width, the slice's main path: (a) the phase 7
+   input in anchor LZ mode
+   (its anchor tables computed on the card): wall, Mbases/s, stage timers
+   with device_lz_tables and device_match, launch counts; up to 4096 of
+   its (text, group) diagonal sets kept during the run and held after it
+   against the host twin (lz_anchor_diags), the first 1024 also against
+   the join and select on the CPU; every sample extracted byte-equal;
+   (b) the phase 4 input in anchor mode with the tables on the card
+   (AGC_TPU_DEVICE_LZ=1) and from
+   the host twin (=0): archives equal part for part; (c) the forced
+   prepass (AGC_TPU_DEVICE_MATCH=1) on the phase 4 input, phase 6's
+   segment 1000 and -a -f 0.01 labels, and a structural collection built
+   so that the estimate prepass, the split search and -f's shortlist all
+   run (default segment 8000, then -f 0.2 -k 17 -l 15 -s 12000): card and
+   CPU (beside it) archives equal part for part, estimate dispatches and pairs
+   printed, every match_estimate call of one card run held against its
+   plain version after the run.
 
-The line before the last is a JSON object with one entry per kernel; the
+Each phase prints the seconds since the start when it ends. The line
+before the last is a JSON object with one entry per kernel; the
 last line is {"ok": true, "device": {...}}. Without CUDA, or without the
 rest of the repository beside this file, it exits non-zero and prints no
 result.
@@ -99,6 +124,7 @@ import subprocess
 import sys
 import tempfile
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 DEVICE = "cuda"
@@ -162,13 +188,16 @@ def canon_bound(n_packed: int) -> tuple[float, str]:
     return bound(n_packed + 16 * n_packed, 40 * n_packed)
 
 
-def dir_rc_bound(n_packed: int, member: bool) -> tuple[float, str]:
+def dir_rc_bound(n_packed: int, n_lookups: int | None = None) -> tuple[float, str]:
     """kmer_dir_rc over n_packed bytes (2 positions each): 0.5 byte in and
-    17 out a position (two int64 codes and the valid flag), 18 with the
-    member flag (the set's bytes, read by the lookups, are not counted);
-    the two orientations rolled in 64 bits, 20 int32 operations a
-    position."""
-    return bound(n_packed + (36 if member else 34) * n_packed, 40 * n_packed)
+    17 out a position (two int64 codes and the valid flag); with a set, 18
+    out (the member flag) and, for each of the n_lookups valid positions,
+    one 32-byte sector of the walk index's directory and one of its table
+    (neither fits in L2 at the main path's sets); the two orientations
+    rolled in 64 bits, 20 int32 operations a position."""
+    if n_lookups is None:
+        return bound(n_packed + 34 * n_packed, 40 * n_packed)
+    return bound(n_packed + 36 * n_packed + 64 * n_lookups, 40 * n_packed)
 
 
 def dir_rc_hard(np, torch, ck, u64, hard) -> int:
@@ -478,7 +507,6 @@ def kernel_name(name: str) -> str:
 
 SCAN_KERNELS = ("scan_count_kernel", "scan_offsets_kernel", "scan_emit_kernel",
                 "mix_set_build_kernel")
-MEMBER_KERNELS = ("member_mix_kernel", "mix_set_build_kernel")
 
 
 def walk_cases(np, seed: int):
@@ -570,6 +598,38 @@ def same_archive(reader_cls, a: str, b: str) -> bool:
     finally:
         ra.close()
         rb.close()
+
+
+CHILDREN = []  # CPU creates running beside the card's (cpu_create)
+
+_CPU_CREATE = (
+    "import json, sys\n"
+    "from agc_tpu_torch.core.compressor import Compressor, CompressorParams, create_archive\n"
+    "a = json.loads(sys.argv[1])\n"
+    "if a['pool_max'] is not None:\n"
+    "    Compressor._POOL_DEVICE_MAX = a['pool_max']\n"
+    "create_archive(a['out'], a['files'], CompressorParams(**a['params']), device='cpu')\n"
+)
+
+
+def cpu_create(out: str, files, params, pool_max=None):
+    """Start the same create with the plain versions on the CPU, in a process
+    of its own so that it runs beside the card's create (the environment,
+    AGC_TPU_DEVICE_MATCH included, is inherited). Returns (process, start)
+    for cpu_done."""
+    arg = json.dumps(dict(out=out, files=list(files), params=vars(params), pool_max=pool_max))
+    proc = subprocess.Popen([sys.executable, "-c", _CPU_CREATE, arg], cwd=REPO,
+                            stdout=subprocess.DEVNULL, stderr=subprocess.PIPE)
+    CHILDREN.append(proc)
+    return proc, time.perf_counter()
+
+
+def cpu_done(started) -> float:
+    """Wait for a cpu_create; its seconds."""
+    proc, t0 = started
+    _out, err = proc.communicate(timeout=1200)
+    check(proc.returncode == 0, f"the CPU create failed: {err[-2000:]!r}")
+    return time.perf_counter() - t0
 
 
 def device_time(torch, prof):
@@ -740,6 +800,436 @@ def adaptive_create(np, torch, ck, tk, Compressor, CompressorParams, create_arch
           f"{len(samples)} samples byte-equal ({time.perf_counter() - t0:.1f} s)")
 
 
+# The match layer (ops/match.py): kernel checks of phase 3, then phase 9.
+
+# torch-op programs of the match layer, counted and timed apart: the XLA
+# programs of agc_tpu/ops/match.py that they replace
+MATCH_PROGRAMS = {
+    "seg_rows_strided": "agc_tpu/ops/match.py:213",
+    "seg_rows": "agc_tpu/ops/match.py:207",
+    "ref_slot_tables": "agc_tpu/ops/match.py:243",
+    "split_point": "agc_tpu/ops/match.py:454",
+    "anchor_join": "agc_tpu/ops/match.py:949",
+    "anchor_select": "agc_tpu/ops/match.py:1099",
+}
+
+
+def estimate_case(np, torch, M, dev, rng, key_len: int, stride: int, t: int, tile: int):
+    """Inputs of one match_estimate dispatch with its edges forced: a bank
+    of 3 references whose last row a pair uses, a row that is all invalid
+    keys, hits in the first and last probe block, and a run that starts
+    right after the kernel's tile boundary (no cover in the blocks before
+    it)."""
+    n_refs = 3
+    b = M._pow4(4 * t, 2048)
+    log2_h = (b // 4 * 2).bit_length() - 1
+    refs = [rng.integers(0, 4, int(rng.integers(2 * key_len, b)), dtype=np.uint8)
+            for _ in range(n_refs)]
+    packed = M._packed_rows(refs, b, dev)
+    bta, btb = M.ref_slot_tables(packed, key_len, log2_h)
+    ref_keys = M._start_keys(packed, key_len)[:, ::4]
+    pool = ref_keys[ref_keys != -1]
+    first = ref_keys[0][ref_keys[0] != -1]
+    q = 6
+
+    def on(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+
+    keys = on(rng.integers(0, 1 << (2 * key_len), (q, t)).astype(np.int64))
+    keys = torch.where(on(rng.random((q, t)) < 0.4),
+                       pool[on(rng.integers(0, pool.numel(), (q, t)))], keys)
+    keys[:, on(rng.random(t) < 0.05)] = -1
+    keys[1] = -1
+    keys[2, 0] = keys[2, -1] = first[0]
+    keys[3, tile - key_len // stride - 2 : tile] = -1
+    keys[3, tile] = first[1]
+    r = key_len % stride
+    a_lo = on(rng.integers(0, r + 1, (q, t)).astype(np.int32))
+    a_hi = on(rng.integers(0, stride - r + 1, (q, t)).astype(np.int32))
+    nrun = on(rng.integers(0, 40, q).astype(np.int32))
+    rows = rng.integers(0, q, 40).astype(np.int32)
+    cands = rng.integers(0, n_refs, 40).astype(np.int32)
+    rows[:q] = np.arange(q)
+    cands[2] = cands[3] = 0
+    cands[-1] = n_refs - 1
+    return keys.contiguous(), a_lo, a_hi, nrun, on(rows), on(cands), bta, btb
+
+
+def estimate_bound(torch, keys_s, rows, cands) -> tuple[float, str]:
+    """match_estimate: the keys and the two ACGT counts of each query row
+    used read once (16 bytes a probe block), two 32-byte sectors (one a
+    slot table) for each valid probe of each pair, 4 + 4 bytes in and 8 out
+    a pair; the hashes and scans are a few dozen integer operations a probe
+    block, far below the bytes."""
+    t = keys_s.shape[1]
+    used = torch.unique(rows.long())
+    valid = int((keys_s[rows.long()] != -1).sum())
+    n_pairs = rows.numel()
+    return bound(16 * t * used.numel() + 64 * valid + 16 * n_pairs, 40 * t * n_pairs)
+
+
+def estimate_dispatch(np, torch, M, dev, rng, n_segs: int = 64, n_cands: int = 16):
+    """match_estimate's inputs at the dispatch shape of a whole-genome
+    prepass: n_segs segments of 60,000 symbols (a 65,536-symbol bucket, so
+    16,384 probe blocks at stride 4), each mutated from one of n_segs
+    references of 100,000 symbols (bank rows of H = 65,536 slots), each
+    segment against n_cands references (its own first), both
+    orientations: n_segs * n_cands = 1024 pairs."""
+    refs = [rng.integers(0, 4, 100_000, dtype=np.uint8) for _ in range(n_segs)]
+    segs = [mutate(np, rng, r[20_000:80_000])[:60_000] for r in refs]
+    seg_b = M._pow4(60_000, M._MIN_SEG_BUCKET)
+    spacked = M._packed_rows(segs, seg_b, dev)
+    lens = torch.tensor([len(s) for s in segs], dtype=torch.int64, device=dev)
+    ref_b = M._pow4(100_000, 2 * M._MIN_REF_KEY_BUCKET)
+    rpacked = M._packed_rows(refs, ref_b, dev)
+    log2_h = (ref_b // 4 * 2).bit_length() - 1
+    rows = np.array([2 * i + (c & 1) for i in range(n_segs) for c in range(n_cands)], np.int32)
+    cands = np.array([(i + c) % n_segs for i in range(n_segs) for c in range(n_cands)], np.int32)
+    return spacked, lens, rpacked, log2_h, torch.from_numpy(rows).to(dev), \
+        torch.from_numpy(cands).to(dev)
+
+
+def match_kernels(np, torch, cm, M, dev, results, card, tile: int) -> dict:
+    """Phase 3's match layer: match_estimate against its plain version on
+    hard cases (key_len 16 and 17, strides 4, 8, 16, a one-row bank) and at
+    the dispatch shape, timed beside its bound; the torch-op programs of
+    the layer timed at their shapes. Returns the programs' times."""
+    rng = np.random.default_rng(SEED + 11)
+    err = 0
+    for key_len in (16, 17):
+        for stride in (4, 8, 16):
+            args = estimate_case(np, torch, M, dev, rng, key_len, stride, 3 * tile + 37, tile)
+            got = cm.match_estimate(*args, key_len, stride)
+            e = max_abs_err(torch, got, cm.match_estimate_plain(*args, key_len, stride))
+            keys, a_lo, a_hi, nrun, rows, cands, bta, btb = args
+            one = (keys, a_lo, a_hi, nrun, rows, torch.zeros_like(cands),
+                   bta[:1].contiguous(), btb[:1].contiguous())
+            e1 = max_abs_err(torch, cm.match_estimate(*one, key_len, stride),
+                             cm.match_estimate_plain(*one, key_len, stride))
+            print(f"match_estimate hard case key_len={key_len} stride={stride}: "
+                  f"{rows.numel()} pairs x {keys.shape[1]} probe blocks (tile {tile}), "
+                  f"estimates {got[:6].tolist()}..., max_abs_err {e}, one-row bank {e1}")
+            check(e == 0 and e1 == 0,
+                  f"match_estimate disagrees with its plain version (key_len {key_len}, "
+                  f"stride {stride}: {e}, {e1})")
+            err = max(err, e, e1)
+
+    spacked, lens, rpacked, log2_h, rows, cands = estimate_dispatch(np, torch, M, dev, rng)
+    key_len, stride = 17, 4
+    keys_s, a_lo, a_hi, nrun = M.seg_rows_strided(spacked, lens, key_len, stride)
+    bta, btb = M.ref_slot_tables(rpacked, key_len, log2_h)
+    args = (keys_s, a_lo, a_hi, nrun, rows, cands, bta, btb, key_len, stride)
+    got = cm.match_estimate(*args)
+    want = cm.match_estimate_plain(*args)
+    e = max_abs_err(torch, got, want)
+    check(e == 0, f"match_estimate disagrees with its plain version at the dispatch shape ({e})")
+    by_seg = got.reshape(keys_s.shape[0] // 2, -1)  # its own reference first
+    check(bool((by_seg[:, 0] < by_seg[:, 1:].min(dim=1).values).all()),
+          "a segment's own reference is not its best estimate")
+    results["match_estimate"] = dict(
+        source="agc_tpu_torch/csrc/match_estimate.cu",
+        replaces="agc_tpu/ops/match.py:363",
+        max_abs_err=max(err, e),
+        ms=cuda_ms(torch, lambda: cm.match_estimate(*args), 10),
+        plain_ms=cuda_ms(torch, lambda: cm.match_estimate_plain(*args), 3),
+        library_ms=None,
+        bound=estimate_bound(torch, keys_s, rows, cands),
+        shape=f"{rows.numel()} pairs x {keys_s.shape[1]} probe blocks (stride 4, key_len 17), "
+              f"bank {tuple(bta.shape)}",
+    )
+    r = results["match_estimate"]
+    print(f"match_estimate dispatch shape ({r['shape']}): max_abs_err {e}; kernel "
+          f"{r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, bound {r['bound'][0]:.4f} ms "
+          f"({r['bound'][1]}; {card})")
+
+    # the torch-op programs at their shapes: bytes in and out over HBM
+    n = 2 * spacked.shape[1]
+    one = spacked[:1]
+    keys1, acgt1, isn1 = M.seg_rows(one, lens[:1], key_len)
+    ta1, tb1, ta2, tb2 = bta[0], btb[0], bta[1], btb[1]
+    # the anchor join at a whole-genome dispatch: texts of 60,000 symbols
+    # against group references of 60,000 symbols (65,536-symbol buckets),
+    # as many rows as _ANCHOR_CHUNK_ELEMS admits
+    a_rows = M._ANCHOR_CHUNK_ELEMS // (n + n // 4)
+    aidx = torch.arange(a_rows, device=dev) % spacked.shape[0]
+    apacked = spacked[aidx].contiguous()
+    arefs = spacked
+    joined = M.anchor_join(apacked, arefs, aidx, key_len)
+    progs = {
+        "seg_rows_strided": (lambda: M.seg_rows_strided(spacked, lens, key_len, stride),
+                             bound(spacked.numel() + keys_s.numel() * 16 + 4 * keys_s.shape[0], 0),
+                             f"{spacked.shape[0]} segments x {n} symbols"),
+        "seg_rows": (lambda: M.seg_rows(one, lens[:1], key_len),
+                     bound(one.numel() + keys1.numel() * 10, 0), f"1 segment x {n} symbols"),
+        "ref_slot_tables": (lambda: M.ref_slot_tables(rpacked, key_len, log2_h),
+                            bound(rpacked.numel() + 2 * bta.numel() * 8, 0),
+                            f"{rpacked.shape[0]} references x {2 * rpacked.shape[1]} symbols, "
+                            f"H = {bta.shape[1]}"),
+        "split_point": (lambda: M.split_point(keys1, acgt1, isn1, int(lens[0]), ta1, tb1, ta2,
+                                              tb2, key_len, False, True),
+                        bound(keys1.numel() * 10 + 2 * 64 * (keys1.shape[1] // 4), 0),
+                        f"1 segment x {n} symbols, two bank rows"),
+        "anchor_join": (lambda: M.anchor_join(apacked, arefs, aidx, key_len),
+                        bound(apacked.numel() * 2 + joined.numel() * 4, 0),
+                        f"{a_rows} texts x {n} symbols against references of {n}"),
+        "anchor_select": (lambda: M.anchor_select(joined),
+                          bound(joined.numel() * 4 + joined.shape[0] * 128, 0),
+                          f"{a_rows} rows x {joined.shape[1]} diagonals"),
+    }
+    times = {}
+    for name, (fn, bnd, shape) in progs.items():
+        times[name] = dict(ms=cuda_ms(torch, fn, 3), bound_ms=bnd[0], shape=shape,
+                           replaces=MATCH_PROGRAMS[name])
+        print(f"match layer torch ops {name}: {times[name]['ms']:.4f} ms at {shape}, bound "
+              f"{bnd[0]:.4f} ms (bytes; {card})")
+    del joined, apacked
+    torch.cuda.empty_cache()
+    return times
+
+
+def structural_collection(np, tk, Compressor, CompressorParams, rng, tmp: str) -> list:
+    """Phase 9c's input where every part of the match layer has work: a
+    reference of 2 contigs of 1 Mbase and four samples. Around every fourth
+    splitter s_a (segment 8000), the first sample deletes the k-mers of the
+    next two splitters (a new group joins s_a to s_a+3) and the second that
+    of the next one (a missing-middle split search); the third ends contigs
+    just after such s_a, so their tail segments' one-splitter searches rank
+    three candidate groups (the estimate prepass); the fourth holds pieces
+    of 9,000 symbols with a substitution every 20 symbols, whose segments
+    lose their splitters and go to -f's fallback votes (at segment 12000,
+    the shortlist). Returns the five paths."""
+    base = [structured_ref(np, rng, 1_000_000) for _ in range(2)]
+    files = [os.path.join(tmp, f"v{i}.fa") for i in range(5)]
+    write_fasta(np, files[0], [(f"vctg{i}", b) for i, b in enumerate(base)])
+    comp = Compressor(os.path.join(tmp, "probe.agc"), CompressorParams(segment_size=8000),
+                      reference_file=files[0], device=DEVICE)
+    splitters = np.array(sorted(comp.splitter_set_snapshot()), dtype=np.uint64)
+    comp.abort()
+    drops = {1: [], 2: []}
+    tails = []
+    for ci, b in enumerate(base):
+        canon, valid = tk.canon_kmers_np(b, 31)
+        pos = np.flatnonzero(valid & np.isin(canon, splitters)).tolist()
+        for s in drops:
+            drops[s].append(np.zeros(len(b), dtype=bool))
+        for i in range(2, len(pos) - 4, 4):
+            for s, n_del in ((1, 2), (2, 1)):
+                for p in pos[i + 1 : i + 1 + n_del]:
+                    drops[s][ci][p - 60 : p + 20] = True
+            tails.append((ci, pos[i]))
+    for s in drops:
+        write_fasta(np, files[s], [(f"vctg{i}", mutate(np, rng, b[~d]))
+                                   for i, (b, d) in enumerate(zip(base, drops[s]))])
+    write_fasta(np, files[3], [(f"vtail{j}", mutate(np, rng, base[ci][max(0, a - 30_000) : a + 500]))
+                               for j, (ci, a) in enumerate(tails)])
+    pieces = []
+    for ci, b in enumerate(base):
+        for s in range(1000, len(b) - 9000, 45_000):
+            p = b[s : s + 9000].copy()
+            p[::20] = (p[::20] + 1) % 4
+            pieces.append((f"vpiece{ci}.{s}", p))
+    write_fasta(np, files[4], pieces)
+    return files
+
+
+def counting(counts: dict, name: str, fn):
+    def call(*args, **kw):
+        counts[name] += 1
+        return fn(*args, **kw)
+    return call
+
+
+def match_layer(np, torch, ck, cm, M, tk, cmod, Compressor, CompressorParams, create_archive,
+                ArchiveReader, AGCFile, LZDiff, results, programs, card, tmp, wfiles, names,
+                wseqs, files4, cfiles, ffiles, stamp) -> None:
+    """Phase 9: the match layer at full width. See the module docstring."""
+    alpha = np.frombuffer(ALPHA, dtype=np.uint8)
+    calls = {name: 0 for name in MATCH_PROGRAMS}
+    saved = {name: getattr(M, name) for name in MATCH_PROGRAMS}
+    for name in MATCH_PROGRAMS:
+        setattr(M, name, counting(calls, name, saved[name]))
+    real_sets = M.anchor_diag_sets
+    try:
+        # -- 9a: anchor mode on the whole-genome input ----------------------
+        kept = []  # up to 4096 (text, gid, set) of the run
+
+        def keeping(texts, gids, bank, provider, key_len):
+            out = real_sets(texts, gids, bank, provider, key_len)
+            for t, g, s in zip(texts, gids, out):
+                if len(kept) < 4096:
+                    kept.append((t, g, None if s is None else s.copy()))
+            return out
+
+        M.anchor_diag_sets = keeping
+        wtotal = sum(len(c) for cs in wseqs.values() for c in cs)
+        out = os.path.join(tmp, "anchor.agc")
+        for name in calls:
+            calls[name] = 0
+        ck.reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        comp = Compressor(out, CompressorParams(lz_mode="anchor", verbosity=1),
+                          reference_file=wfiles[0], device=DEVICE)
+        comp.add_sample_files([(cmod.sample_name_from_path(f), f) for f in wfiles])
+        comp.close()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        M.anchor_diag_sets = real_sets
+        launches = dict(ck.LAUNCHES)
+        acalls = dict(calls)
+        timers = comp.timers
+        print(f"anchor whole-genome create (lz_mode anchor, default parameters): {wtotal} bases "
+              f"in {wall:.4f} s = {wtotal / wall / 1e6:.2f} Mbases/s ({card}); archive "
+              f"{os.path.getsize(out)} bytes; launches {launches}; match-layer torch-op "
+              f"calls {acalls}; device_lz_tables {timers.times['device_lz_tables']:.4f} s; "
+              f"device_match {timers.times['device_match']:.4f} s, "
+              f"{timers.units['device_match']} pair-symbols")
+        print("anchor stage timers (s): " + json.dumps(
+            {n: round(t, 4) for n, t in sorted(timers.times.items(), key=lambda kv: -kv[1])}))
+        check(timers.times["device_lz_tables"] > 0 and acalls["anchor_join"] > 0,
+              "the anchor create computed no table on the card")
+        check(launches["kmer_dir_rc"] > 0, "the anchor create never launched kmer_dir_rc")
+        results["kmer_dir_rc"]["anchor_create_launches"] = launches["kmer_dir_rc"]
+        for name in ("anchor_join", "anchor_select"):
+            programs[name]["phase9_calls"] = acalls[name]
+        # the kept sets against the host twin and the torch ops on the CPU
+        t0 = time.perf_counter()
+
+        def prepared(gid):
+            lz = LZDiff(CompressorParams().min_match_len)
+            lz.prepare(comp._ref_codes_of(gid))
+            return gid, lz
+
+        # the native calls release the interpreter lock: one thread a core
+        with ThreadPoolExecutor(os.cpu_count() or 4) as pool:
+            lzs = dict(pool.map(prepared, sorted({g for _t, g, _s in kept})))
+            hosts = list(pool.map(lambda k: lzs[k[1]].anchor_diags_host(k[0]), kept))
+        for (_t, gid, s), host in zip(kept, hosts):
+            check((s is None) == (host is None) and (s is None or np.array_equal(s, host)),
+                  f"an anchor set of group {gid} differs from the host twin")
+        n_sets = sum(s is not None for _t, _g, s in kept)
+        del lzs, hosts
+        # the CPU's torch ops take ~14 ms a set: the first 1024 only
+        on_cpu = kept[:1024]
+        plain = real_sets([t for t, _g, _s in on_cpu], [g for _t, g, _s in on_cpu],
+                          M.AnchorCodeBank("cpu"), comp._ref_codes_of,
+                          CompressorParams().min_match_len - 3)
+        for (_t, g, s), p in zip(on_cpu, plain):
+            check((s is None) == (p is None) and (s is None or np.array_equal(s, p)),
+                  f"an anchor set of group {g} differs from the CPU's torch ops")
+        print(f"anchor sets: {len(kept)} kept ({n_sets} with a set) equal to the host twin "
+              f"(lz_anchor_diags), the first {len(on_cpu)} to the join and select on the CPU "
+              f"({time.perf_counter() - t0:.1f} s)")
+        check(n_sets > len(kept) // 2, f"only {n_sets} of {len(kept)} kept pairs had a set")
+        del kept, plain, comp
+        t0 = time.perf_counter()
+        with AGCFile(out) as agc:
+            for sname, contigs in wseqs.items():
+                for cname, seq in zip(names, contigs):
+                    check(agc.GetCtgSeq(sname, cname).encode("latin-1") == alpha[seq].tobytes(),
+                          f"{cname}@{sname} does not extract byte-equal from the anchor archive")
+        print(f"anchor extract: {len(wseqs)} samples x {len(names)} contigs byte-equal "
+              f"({time.perf_counter() - t0:.1f} s)")
+        os.unlink(out)
+        torch.cuda.empty_cache()
+
+        stamp("9a")
+
+        # -- 9b: the device tables change no byte ----------------------------
+        a, b = os.path.join(tmp, "lz1.agc"), os.path.join(tmp, "lz0.agc")
+        walls = []
+        for path, flag in ((a, "1"), (b, "0")):
+            os.environ["AGC_TPU_DEVICE_LZ"] = flag
+            try:
+                t0 = time.perf_counter()
+                create_archive(path, files4, CompressorParams(lz_mode="anchor"), device=DEVICE)
+                walls.append(time.perf_counter() - t0)
+            finally:
+                del os.environ["AGC_TPU_DEVICE_LZ"]
+        equal = same_archive(ArchiveReader, a, b)
+        print(f"anchor chr-scale create, tables on the card {walls[0]:.2f} s, host twin "
+              f"{walls[1]:.2f} s; archives equal part for part: {equal} ({card})")
+        check(equal, "anchor archives differ between device tables on and off")
+
+        stamp("9b")
+
+        # -- 9c: the forced prepass, card against CPU -------------------------
+        vfiles = structural_collection(np, tk, Compressor, CompressorParams,
+                                       np.random.default_rng(SEED + 12), tmp)
+        stress = dict(kmer_length=17, min_match_len=15, segment_size=1000,
+                      pack_cardinality=50000)
+        held = []  # every match_estimate call of the structural run
+        real_est = M.match_estimate
+        pairs = [0]
+
+        def keep_est(*args):
+            got = real_est(*args)
+            pairs[0] += args[4].numel()
+            if keep[0]:
+                held.append(([x.clone() if torch.is_tensor(x) else x for x in args], got.clone()))
+            return got
+
+        keep = [False]
+        M.match_estimate = keep_est
+        os.environ["AGC_TPU_DEVICE_MATCH"] = "1"
+        total_launches = 0
+        try:
+            for label, params, lfiles in (
+                ("phase 4's input", CompressorParams(), files4),
+                ("segment 1000", CompressorParams(segment_size=1000), cfiles),
+                ("-a -f 0.01", CompressorParams(adaptive_compression=True,
+                                                fallback_frac=0.01, **stress), ffiles),
+                ("structural, segment 8000", CompressorParams(segment_size=8000), vfiles),
+                ("structural -f 0.2 -k 17 -l 15 -s 12000",
+                 CompressorParams(fallback_frac=0.2, kmer_length=17, min_match_len=15,
+                                  segment_size=12000), vfiles),
+            ):
+                a, b = os.path.join(tmp, "card.agc"), os.path.join(tmp, "cpu.agc")
+                on_cpu = cpu_create(b, lfiles, params)
+                keep[0] = label == "structural, segment 8000"
+                pairs[0] = 0
+                for name in calls:
+                    calls[name] = 0
+                ck.reset_launches()
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                ctimes = create_archive(a, lfiles, params, device=DEVICE)
+                torch.cuda.synchronize()
+                t_card = time.perf_counter() - t0
+                launches, pcalls, n_pairs = dict(ck.LAUNCHES), dict(calls), pairs[0]
+                keep[0] = False
+                t_cpu = cpu_done(on_cpu)
+                equal = same_archive(ArchiveReader, a, b)
+                print(f"forced match ({label}): card {t_card:.2f} s, CPU {t_cpu:.2f} s; "
+                      f"match_estimate dispatches {launches['match_estimate']}, pairs {n_pairs}; "
+                      f"torch-op calls {pcalls}; device_match {ctimes.times['device_match']:.4f} "
+                      f"s, {ctimes.units['device_match']} pair-symbols; kmer_dir_rc launches "
+                      f"{launches['kmer_dir_rc']}; archives equal part for part: {equal} ({card})")
+                check(equal, f"card and CPU archives differ under the forced prepass ({label})")
+                total_launches += launches["match_estimate"]
+                for name in ("seg_rows_strided", "seg_rows", "ref_slot_tables", "split_point"):
+                    programs[name]["phase9_calls"] = (programs[name].get("phase9_calls", 0)
+                                                      + pcalls[name])
+                if label.startswith("structural"):
+                    check(launches["match_estimate"] > 0,
+                          f"the forced run ({label}) never launched match_estimate")
+                if label == "structural, segment 8000":
+                    check(pcalls["split_point"] > 0, "the forced run made no split search")
+        finally:
+            M.match_estimate = real_est
+            del os.environ["AGC_TPU_DEVICE_MATCH"]
+        errs = [max_abs_err(torch, got, cm.match_estimate_plain(*args)) for args, got in held]
+        print(f"forced match (structural, segment 8000): {len(held)} match_estimate calls "
+              f"({sum(a[4].numel() for a, _ in held)} pairs) against the plain version on the "
+              f"card, max_abs_err {max(errs, default=None)}")
+        check(errs and max(errs) == 0, f"kept match_estimate calls disagree or none ran ({errs})")
+        results["match_estimate"]["launches"] = total_launches
+    finally:
+        for name, fn in saved.items():
+            setattr(M, name, fn)
+        M.anchor_diag_sets = real_sets
+
+
 def main() -> int:
     started = time.perf_counter()
     import numpy as np
@@ -753,8 +1243,11 @@ def main() -> int:
     from agc_tpu_torch.core import ArchiveReader
     from agc_tpu_torch.core import compressor as cmod
     from agc_tpu_torch.core.compressor import Compressor, CompressorParams, create_archive
+    from agc_tpu_torch.core.lz import LZDiff
     from agc_tpu_torch.ops import _build
     from agc_tpu_torch.ops import cuda_kmers as ck
+    from agc_tpu_torch.ops import cuda_match as cm
+    from agc_tpu_torch.ops import match as M
     from agc_tpu_torch.ops import kmers as tk
     from agc_tpu_torch.ops import u64
 
@@ -780,6 +1273,11 @@ def main() -> int:
             print("  ptxas:", line.split(":", 1)[-1].strip())
 
     results = {}
+
+    def stamp(phase: str) -> None:
+        print(f"phase {phase} done at {time.perf_counter() - started:.1f} s", flush=True)
+
+    stamp("1-2")
 
     # -- 3. kernels against their plain versions ---------------------------
     n_scan = N_SCAN
@@ -1035,10 +1533,11 @@ def main() -> int:
         ms=cuda_ms(torch, lambda: ck.kmer_dir_rc(cpacked, k), 10),
         plain_ms=cuda_ms(torch, lambda: ck.kmer_dir_rc_plain(cpacked, k), 2),
         library_ms=None,
-        bound=dir_rc_bound(cpacked.numel(), False),
+        bound=dir_rc_bound(cpacked.numel()),
         member_ms=cuda_ms(torch, lambda: ck.kmer_dir_rc(cpacked, k, idx), 10),
         member_plain_ms=cuda_ms(torch, lambda: ck.kmer_dir_rc_plain(cpacked, k, idx), 2),
-        member_bound_ms=dir_rc_bound(cpacked.numel(), True)[0],
+        member_bound_ms=dir_rc_bound(cpacked.numel(),
+                                     int(ck.kmer_dir_rc(cpacked, k)[2].sum()))[0],
         shape=f"1 contig x {len(ref)} symbols, k=31; with a set: the {idx[0].numel()} "
               "singletons of its pool",
     )
@@ -1068,6 +1567,9 @@ def main() -> int:
           f"{results['greedy_walk']['ms']:.4f} ms ({card})")
     del cpacked, canon, flat, pool, idx, g, gp
     torch.cuda.empty_cache()
+    programs = match_kernels(np, torch, cm, M, dev, results, card,
+                             _build.lib().agc_match_estimate_tile())
+    stamp("3")
 
     # -- 4. the main path: chr-scale create --------------------------------
     tmp = tempfile.mkdtemp(prefix="agc_torch_smoke_")
@@ -1131,6 +1633,8 @@ def main() -> int:
                       f"sample {name} does not extract byte-equal")
         print(f"extract: {len(seqs)} samples byte-equal")
 
+        stamp("4")
+
         # -- 5. the CLI on the card ----------------------------------------
         cli_out = os.path.join(tmp, "cli.agc")
         cli = [sys.executable, "-m", "agc_tpu_torch.cli.main"]
@@ -1145,10 +1649,12 @@ def main() -> int:
         print("CLI: create --device cuda, then getctg chr1@s1 byte-equal")
         del seqs
 
+        stamp("5")
+
         # -- 6. card against CPU on a many-contig collection ----------------
         crng = np.random.default_rng(SEED + 1)
         base = [structured_ref(np, crng, int(n))
-                for n in crng.integers(20_000, 2_000_000, 24)]
+                for n in crng.integers(20_000, 2_000_000, 12)]
         cfiles = []
         for fi in range(3):
             cfiles.append(os.path.join(tmp, f"m{fi}.fa"))
@@ -1163,21 +1669,20 @@ def main() -> int:
             ("-c", CompressorParams(concatenated_genomes=True), None),
             ("segment 1000", CompressorParams(segment_size=1000), None),
             # a reference over _POOL_DEVICE_MAX: value-sampled discovery
-            ("sampled + segment 1000", CompressorParams(segment_size=1000), 1 << 24),
+            ("sampled + segment 1000", CompressorParams(segment_size=1000), 1 << 23),
         ):
             default_max = Compressor._POOL_DEVICE_MAX
             if pool_max is not None:
                 Compressor._POOL_DEVICE_MAX = pool_max
             try:
                 a, b = os.path.join(tmp, "card.agc"), os.path.join(tmp, "cpu.agc")
+                on_cpu = cpu_create(b, cfiles, params, pool_max)
                 torch.cuda.synchronize()
                 t0 = time.perf_counter()
                 ctimes = create_archive(a, cfiles, params, device=DEVICE).times
                 torch.cuda.synchronize()
                 t_card = time.perf_counter() - t0
-                t0 = time.perf_counter()
-                create_archive(b, cfiles, params, device="cpu")
-                t_cpu = time.perf_counter() - t0
+                t_cpu = cpu_done(on_cpu)
             finally:
                 Compressor._POOL_DEVICE_MAX = default_max
             reader = ArchiveReader(a)
@@ -1186,7 +1691,7 @@ def main() -> int:
             equal = same_archive(ArchiveReader, a, b)
             stages = {n: round(ctimes[n], 3) for n in ("splitter_discovery", "scan_collect",
                                                         "match_contig", "store_encode")}
-            print(f"collection ({label}; 3 files x 24 contigs, reference {cbases} bases): "
+            print(f"collection ({label}; 3 files x 12 contigs, reference {cbases} bases): "
                   f"{n_split} splitters; card {t_card:.2f} s {stages}, CPU {t_cpu:.2f} s; "
                   f"archives equal part for part: {equal} ({card})")
             check(equal, f"card and CPU archives differ ({label})")
@@ -1219,6 +1724,7 @@ def main() -> int:
             ):
                 discovered.clear()
                 a, b = os.path.join(tmp, "card.agc"), os.path.join(tmp, "cpu.agc")
+                on_cpu = cpu_create(b, lfiles, params)
                 ck.reset_launches()
                 torch.cuda.synchronize()
                 t0 = time.perf_counter()
@@ -1226,9 +1732,7 @@ def main() -> int:
                 torch.cuda.synchronize()
                 t_card = time.perf_counter() - t0
                 alaunch = dict(ck.LAUNCHES)
-                t0 = time.perf_counter()
-                create_archive(b, lfiles, params, device="cpu")
-                t_cpu = time.perf_counter() - t0
+                t_cpu = cpu_done(on_cpu)
                 reader = ArchiveReader(a)
                 n_split = reader.get_part("splitters", 0)[1]
                 reader.close()
@@ -1257,6 +1761,8 @@ def main() -> int:
                         results["kmer_dir_rc"]["launches"] = alaunch["kmer_dir_rc"]
         finally:
             Compressor.determine_splitters = real_determine
+
+        stamp("6")
 
         # -- 7. the whole-genome path: sampled discovery and the join -------
         wrng = np.random.default_rng(SEED + 2)
@@ -1364,21 +1870,6 @@ def main() -> int:
               f"{ww['whole_genome_bound_ms']:.4f} ms) ({card})")
         del held, first, plain_disc, cpk, wargs, w_canon, w_pool, w_idx, g
         torch.cuda.empty_cache()
-
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            create_archive(wout, wfiles, CompressorParams(), device=DEVICE)
-            torch.cuda.synchronize()
-            pwall = time.perf_counter() - t0
-        busy, by_name = device_time(torch, prof)
-        print(f"whole-genome profiled create: wall {pwall:.4f} s, device busy {busy:.3f} ms, "
-              f"busy share {busy / 1e3 / pwall:.5f} of that run ({card})")
-        print_device(by_name)
-        results["member_mix"]["whole_genome_profiled_ms"] = kernel_ms(by_name, MEMBER_KERNELS)
-        print(f"whole-genome profiled create: member_mix kernels "
-              f"{kernel_ms(by_name, MEMBER_KERNELS):.3f} ms ({', '.join(MEMBER_KERNELS)}; {card})")
-        del prof
         t0 = time.perf_counter()
         with AGCFile(wout) as agc:
             for sname, contigs in wseqs.items():
@@ -1388,10 +1879,24 @@ def main() -> int:
         print(f"whole-genome extract: {len(wseqs)} samples x {len(names)} contigs byte-equal "
               f"({time.perf_counter() - t0:.1f} s)")
 
+        stamp("7")
+
         # -- 8. the adaptive create at full width -----------------------------
         adaptive_create(np, torch, ck, tk, Compressor, CompressorParams, create_archive,
                         ArchiveReader, AGCFile, results, card, tmp, wfiles[0], names, wseqs)
+
+        stamp("8")
+
+        # -- 9. the match layer at full width --------------------------------
+        match_layer(np, torch, ck, cm, M, tk, cmod, Compressor, CompressorParams,
+                    create_archive, ArchiveReader, AGCFile, LZDiff, results, programs, card,
+                    tmp, wfiles, names, wseqs, files, cfiles, ffiles, stamp)
+        stamp("9")
     finally:
+        for proc in CHILDREN:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
         shutil.rmtree(tmp, ignore_errors=True)
 
     kernels = [
@@ -1401,7 +1906,7 @@ def main() -> int:
          "bound_by": r["bound"][1], "library_ms": r["library_ms"],
          **{key: v for key, v in r.items()
             if key.startswith(("whole_genome", "chr_scale", "large_table", "member_",
-                               "adaptive_"))}}
+                               "adaptive_", "anchor_"))}}
         for name, r in results.items()
     ]
     for name, r in results.items():
@@ -1409,6 +1914,7 @@ def main() -> int:
               f"{r['bound'][0]:.4f} ms ({r['bound'][1]}), library "
               f"{r['library_ms'] if r['library_ms'] is None else round(r['library_ms'], 4)} ms "
               f"({r['shape']}; {card})")
+    print("match layer torch-op programs: " + json.dumps(programs))
     print(f"chip_smoke.py: {time.perf_counter() - started:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -4,8 +4,9 @@ stream for stream and part for part, byte-equal extraction with agc_tpu's
 Decompressor, and a port that imports neither jax nor agc_tpu. Each
 package gets its own CompressorParams.
 
-agc_tpu runs with AGC_TPU_DEVICE_MATCH=0: its device match prepass is not
-ported, and the port's default matches agc_tpu with the prepass off.
+These tests pin AGC_TPU_DEVICE_MATCH=0 on both packages; the estimate
+prepass, which both run under the default auto gate, is held against
+agc_tpu in test_torch_device_match.py.
 """
 
 import os
@@ -173,12 +174,14 @@ _BLOCK_REFERENCE = (
 
 def test_port_stands_alone(tmp_path):
     """With agc_tpu and jax blocked by a sys.meta_path finder, the port
-    imports, creates on the CPU (default mode, then -a -f), and extracts
+    imports, creates on the CPU (default mode, -a -f, anchor mode with the
+    match layer's tables, and the forced estimate prepass), and extracts
     byte-equal through its own AGCFile and its own CLI (getcol)."""
     files = make_collection(tmp_path, random.Random(13), n_samples=1,
                             contig_lens=(30000, 9000))
     out = str(tmp_path / "x.agc")
     out_af = str(tmp_path / "af.agc")
+    out_match = str(tmp_path / "match.agc")
     got_dir = tmp_path / "got"
     got_dir.mkdir()
     code = _BLOCK_REFERENCE + (
@@ -189,8 +192,16 @@ def test_port_stands_alone(tmp_path):
         "CompressorParams(segment_size=3000), device='cpu')\n"
         f"create_archive({out_af!r}, {[p for _, p in files]!r}, CompressorParams("
         "segment_size=3000, adaptive_compression=True, fallback_frac=0.05), device='cpu')\n"
-        f"with agc_tpu_torch.AGCFile({out_af!r}) as agc:\n"
-        "    assert agc.GetCtgSeq('s0', 'c1') == agc_tpu_torch.AGCFile("
+        "import os\n"
+        "os.environ['AGC_TPU_DEVICE_MATCH'] = '1'\n"
+        "os.environ['AGC_TPU_DEVICE_LZ'] = '1'\n"
+        f"t = create_archive({out_match!r}, {[p for _, p in files]!r}, CompressorParams("
+        "segment_size=3000, lz_mode='anchor'), device='cpu')\n"
+        "assert t.times['device_lz_tables'] > 0 and t.units['device_match'] > 0\n"
+        "del os.environ['AGC_TPU_DEVICE_MATCH'], os.environ['AGC_TPU_DEVICE_LZ']\n"
+        f"for other in ({out_af!r}, {out_match!r}):\n"
+        "    with agc_tpu_torch.AGCFile(other) as agc:\n"
+        "        assert agc.GetCtgSeq('s0', 'c1') == agc_tpu_torch.AGCFile("
         f"{out!r}).GetCtgSeq('s0', 'c1')\n"
         f"with agc_tpu_torch.AGCFile({out!r}) as agc:\n"
         "    print(agc.GetCtgSeq('s0', 'c2'))\n"
@@ -263,9 +274,6 @@ def test_cuda_device_without_cuda_raises(tmp_path):
 @pytest.mark.parametrize(
     "params,env",
     [
-        (CompressorParams(lz_mode="anchor"), {}),
-        (CompressorParams(), {"AGC_TPU_DEVICE_MATCH": "1"}),
-        (CompressorParams(), {"AGC_TPU_DEVICE_SPLIT": "1"}),
         (CompressorParams(), {"AGC_TPU_RANS_DEVICE": "1"}),
     ],
 )

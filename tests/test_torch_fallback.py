@@ -4,8 +4,9 @@ The dense scan's kernel (``kmer_dir_rc``, plain version here) against
 agc_tpu's ``contig_kmers_dir_rc`` / ``_with_membership`` and the Pallas
 ``kmer_core_via_pallas`` in interpret mode; ``scan_contig``; the fallback
 walk, filter and re-rank copies; and whole creates with -f and -a -f,
-archives equal stream for stream and part for part. agc_tpu runs with
-AGC_TPU_DEVICE_MATCH=0 (its device shortlist is not ported, ROADMAP A.3).
+archives equal stream for stream and part for part. Both packages run with
+AGC_TPU_DEVICE_MATCH=0 here; -f's device shortlist is held against agc_tpu
+in test_torch_device_match.py.
 """
 
 import random
