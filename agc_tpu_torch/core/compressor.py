@@ -370,16 +370,6 @@ class _FallbackFilter:
         return (murmur64(kmer) ^ _FALLBACK_RND) < self.thr
 
 
-def _check_ported() -> None:
-    """Raise for options whose device ops the port does not have yet
-    (named by their ROADMAP item); they never run another engine."""
-    if os.environ.get("AGC_TPU_RANS_DEVICE") not in (None, "", "0"):
-        raise NotImplementedError(
-            "not ported to agc_tpu_torch yet: AGC_TPU_RANS_DEVICE=1: the device "
-            "rANS coder (ROADMAP A.4)"
-        )
-
-
 class Compressor:
     """Create or append to an AGC archive; device work runs on
     ``device`` ("cuda" by default, "cpu" for the plain versions)."""
@@ -404,7 +394,6 @@ class Compressor:
         if self.p.profile not in ("zstd", "tpu-rans"):
             # validate BEFORE the writer opens (and truncates) out_path
             raise ValueError(f"unknown archive profile {self.p.profile!r}")
-        _check_ported()
         self.device = resolve_device(device)
         self.writer = ArchiveWriter(out_path)
         self.collection: CollectionV3
@@ -686,15 +675,16 @@ class Compressor:
 
     def _entropy_sink(self):
         """Shared deferred-entropy sink for the tpu-rans profile: part
-        payloads queue here and are rANS-coded in batched device
-        dispatches at store/finish flush points (entropy.compress_parts).
-        None on the zstd profile (zstd compresses inline)."""
+        payloads queue here and are rANS-coded a flush at a time at the
+        store/finish flush points (entropy.compress_parts), on the
+        engine's device when the device coder is forced. None on the zstd
+        profile (zstd compresses inline)."""
         if self.p.profile != "tpu-rans":
             return None
         if self._entropy_batcher is None:
             from .entropy import EntropyBatcher
 
-            self._entropy_batcher = EntropyBatcher(self.writer)
+            self._entropy_batcher = EntropyBatcher(self.writer, self.device)
         return self._entropy_batcher
 
     # ==================================================================
@@ -2550,6 +2540,16 @@ class Compressor:
     def close(self) -> bool:
         if self._closed:
             return False
+        try:
+            return self._close()
+        except BaseException:
+            # a failed finish (a store job's error surfaces here) leaves no
+            # partial archive: abort() tears down as for any other failure
+            self._closed = False
+            self.abort()
+            raise
+
+    def _close(self) -> bool:
         self._closed = True
         import time as _time
 

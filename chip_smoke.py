@@ -43,7 +43,12 @@ Phases (any failure exits non-zero before the result line):
    dispatch shape of a whole-genome prepass (1024 pairs x 16,384 probe
    blocks, bank rows of 65,536 slots); the match layer's torch-op programs
    (segment rows, slot tables, split search, anchor join and select) timed
-   at their shapes;
+   at their shapes; rans_encode (every part of a flush in one launch) on
+   hard payloads in one launch that holds all five lane tiers (agc_tpu's
+   entropy cases, each tier's edges, last rows partly inactive, rare
+   symbols of frequency 1, a raw escape, a fuzz), against its plain version
+   on the card and its blobs against the host native coder, and
+   rans_decode on each coded blob against its plain version and the input;
 4. the main path: a chr-scale create (one 64 Mbase reference contig with
    repeat families + 2 resequenced samples, default parameters) through
    agc_tpu_torch.core.compressor.create_archive(device="cuda"), with the
@@ -89,7 +94,10 @@ Phases (any failure exits non-zero before the result line):
    call of the new-splitter path kept during the timed create and held
    against its plain version on the card after it; discovery's splitters
    against the port's host full-pool path (_POOL_CARD_MAX lowered to 0)
-   on the same reference; every sample extracted byte-equal;
+   on the same reference; every sample extracted byte-equal; then
+   candidate_tables and singleton_filter over its full pool and
+   collect_kmers over the reference's contigs, timed with their bounds
+   and their calls in the create;
 9. the match layer at full width, the slice's main path: (a) the phase 7
    input in anchor LZ mode
    (its anchor tables computed on the card): wall, Mbases/s, stage timers
@@ -106,7 +114,20 @@ Phases (any failure exits non-zero before the result line):
    run (default segment 8000, then -f 0.2 -k 17 -l 15 -s 12000): card and
    CPU (beside it) archives equal part for part, estimate dispatches and pairs
    printed, every match_estimate call of one card run held against its
-   plain version after the run.
+   plain version after the run;
+10. the device rANS coder (AGC_TPU_RANS_DEVICE=1) at full width: the
+   phase 7 input with --profile tpu-rans on the card: wall, Mbases/s,
+   stage timers, flushes, parts and payload bytes, the flushes' seconds
+   split into host preparation, upload, kernel, download and blob
+   assembly (the stages of ops/device_rans.py wrapped with timers), launch
+   counts; every blob of the run against the host native coder on its
+   payload, up to 4096 coded blobs decoded on the card through
+   decompress_device, both kernels timed at the largest flush's shape
+   beside the host coder on the same flush, every sample extracted
+   byte-equal; phase 4's input with the card's coder and with the host
+   coder (archives equal part for part); phase 6's collection, create and
+   then append, on the card and on the CPU (plain versions, in a process
+   of its own beside the card's), archives equal part for part.
 
 Each phase prints the seconds since the start when it ends. The line
 before the last is a JSON object with one entry per kernel; the
@@ -604,20 +625,27 @@ CHILDREN = []  # CPU creates running beside the card's (cpu_create)
 
 _CPU_CREATE = (
     "import json, sys\n"
-    "from agc_tpu_torch.core.compressor import Compressor, CompressorParams, create_archive\n"
+    "from agc_tpu_torch.core.compressor import Compressor, CompressorParams, append_archive, "
+    "create_archive\n"
     "a = json.loads(sys.argv[1])\n"
     "if a['pool_max'] is not None:\n"
     "    Compressor._POOL_DEVICE_MAX = a['pool_max']\n"
-    "create_archive(a['out'], a['files'], CompressorParams(**a['params']), device='cpu')\n"
+    "if a['base'] is not None:\n"
+    "    append_archive(a['base'], a['out'], a['files'], CompressorParams(**a['params']), "
+    "device='cpu')\n"
+    "else:\n"
+    "    create_archive(a['out'], a['files'], CompressorParams(**a['params']), device='cpu')\n"
 )
 
 
-def cpu_create(out: str, files, params, pool_max=None):
-    """Start the same create with the plain versions on the CPU, in a process
-    of its own so that it runs beside the card's create (the environment,
-    AGC_TPU_DEVICE_MATCH included, is inherited). Returns (process, start)
+def cpu_create(out: str, files, params, pool_max=None, base=None):
+    """Start the same create (or, given ``base``, append onto it) with the
+    plain versions on the CPU, in a process of its own so that it runs
+    beside the card's create (the environment, AGC_TPU_DEVICE_MATCH and
+    AGC_TPU_RANS_DEVICE included, is inherited). Returns (process, start)
     for cpu_done."""
-    arg = json.dumps(dict(out=out, files=list(files), params=vars(params), pool_max=pool_max))
+    arg = json.dumps(dict(out=out, files=list(files), params=vars(params), pool_max=pool_max,
+                          base=base))
     proc = subprocess.Popen([sys.executable, "-c", _CPU_CREATE, arg], cwd=REPO,
                             stdout=subprocess.DEVNULL, stderr=subprocess.PIPE)
     CHILDREN.append(proc)
@@ -664,8 +692,8 @@ def print_device(by_name: dict) -> None:
             print(f"  device {ms:9.3f} ms  {name[:100]}")
 
 
-def adaptive_create(np, torch, ck, tk, Compressor, CompressorParams, create_archive,
-                    ArchiveReader, AGCFile, results, card, tmp, ref_file, names,
+def adaptive_create(np, torch, ck, tk, cmod, Compressor, CompressorParams, create_archive,
+                    ArchiveReader, AGCFile, results, programs, card, tmp, ref_file, names,
                     wseqs) -> None:
     """Phase 8: -a on the phase 7 reference (its full pool on the card) and
     2 samples with novel contigs. See the module docstring."""
@@ -727,6 +755,14 @@ def adaptive_create(np, torch, ck, tk, Compressor, CompressorParams, create_arch
     tk.greedy_walk = keeping("greedy_walk", ck.greedy_walk)
     Compressor._find_new_splitters = find_held
     Compressor.determine_splitters = capture
+    # the discovery programs' calls (singleton_filter's inside
+    # candidate_tables included)
+    disc_calls = dict.fromkeys(DISC_PROGRAMS, 0)
+    saved_disc = [(mod, name, getattr(mod, name)) for mod, name in (
+        (cmod, "candidate_tables"), (cmod, "collect_kmers"), (cmod, "singleton_filter"),
+        (tk, "singleton_filter"))]
+    for mod, name, fn in saved_disc:
+        setattr(mod, name, counting(disc_calls, name, fn))
     out = os.path.join(tmp, "adaptive.agc")
     try:
         torch.cuda.synchronize()
@@ -743,6 +779,8 @@ def adaptive_create(np, torch, ck, tk, Compressor, CompressorParams, create_arch
         tk.kmer_canon, tk.greedy_walk = saved
         Compressor._find_new_splitters = real_find
         Compressor.determine_splitters = real_determine
+        for mod, name, fn in saved_disc:
+            setattr(mod, name, fn)
     peak = torch.cuda.max_memory_allocated()
     reader = ArchiveReader(out)
     data, n_split = reader.get_part("splitters", 0)
@@ -798,6 +836,51 @@ def adaptive_create(np, torch, ck, tk, Compressor, CompressorParams, create_arch
                       f"{cname}@{sname} does not extract byte-equal from the adaptive archive")
     print(f"adaptive extract: {sum(len(c) for c in samples.values())} contigs of "
           f"{len(samples)} samples byte-equal ({time.perf_counter() - t0:.1f} s)")
+    discovery_programs(torch, tk, programs, card, wseqs["ref"], disc_calls)
+
+
+# The discovery programs of -a and -f (torch ops of ops/kmers.py since PR
+# 6): agc_tpu's XLA programs that they replace
+DISC_PROGRAMS = {
+    "candidate_tables": "agc_tpu/ops/kmers.py:1172",
+    "singleton_filter": "agc_tpu/ops/kmers.py:1231",
+    "collect_kmers": "agc_tpu/ops/kmers.py:268",
+}
+
+
+def discovery_programs(torch, tk, programs, card, contigs, calls) -> None:
+    """candidate_tables and singleton_filter over phase 8's full pool (the
+    phase 7 reference's canonical k-mers, sorted), collect_kmers (agc_tpu's
+    contig_kmers) over each of its contigs, timed with CUDA events; their
+    calls in phase 8's create; bounds from each input read once and each
+    output written once."""
+    dev = torch.device(DEVICE)
+    k = 31
+    ms_collect = sum(cuda_ms(torch, lambda c=c: tk.collect_kmers(c, k, dev), 2) for c in contigs)
+    n_ref = sum(len(c) for c in contigs)
+    pool = tk.sort_kmers(torch.cat([tk.collect_kmers(c, k, dev) for c in contigs]))
+    n = pool.numel()
+    singles, dups = tk.candidate_tables(pool)
+    n_tables = singles.numel() + dups.numel()
+    del singles, dups
+    rows = {
+        # the nibble-packed contig in, one int64 a valid k-mer out
+        "collect_kmers": (ms_collect, bound(n_ref / 2 + 8 * n, 0)),
+        # the pool in, two bool masks out
+        "singleton_filter": (cuda_ms(torch, lambda: tk.singleton_filter(pool), 5),
+                             bound(10 * n, 0)),
+        # the pool in, the two tables out
+        "candidate_tables": (cuda_ms(torch, lambda: tk.candidate_tables(pool), 3),
+                             bound(8 * n + 8 * n_tables, 0)),
+    }
+    del pool
+    torch.cuda.empty_cache()
+    for name, (ms, (bound_ms, bound_by)) in rows.items():
+        programs[name] = dict(ms=ms, bound_ms=bound_ms, bound_by=bound_by, calls=calls[name],
+                              replaces=DISC_PROGRAMS[name])
+    print(f"discovery programs at phase 8's shape (pool of {n} k-mers, {n_tables} in the "
+          f"tables; collect_kmers summed over the {len(contigs)} reference contigs): "
+          + json.dumps({name: programs[name] for name in DISC_PROGRAMS}) + f" ({card})")
 
 
 # The match layer (ops/match.py): kernel checks of phase 3, then phase 9.
@@ -1230,6 +1313,255 @@ def match_layer(np, torch, ck, cm, M, tk, cmod, Compressor, CompressorParams, cr
         M.anchor_diag_sets = real_sets
 
 
+# The device rANS coder (ops/device_rans.py): kernel checks of phase 3,
+# then phase 10. int32 operations (csrc/rans.cu's note): encode ~27 a
+# symbol (the runtime division's ~17, the remainder's 2, the renorm tests,
+# shifts and table reads), decode ~10 a symbol, 3 more a stream byte
+# (store or load, shift, count)
+RANS_ENCODE_OPS = 27
+RANS_DECODE_OPS = 10
+RANS_BYTE_OPS = 3
+
+
+def rans_bound(n_sym: int, n_stream: int, n_parts: int, n_lanes: int,
+               decode: bool) -> tuple[float, str]:
+    """rans_encode / rans_decode moving n_sym symbols and n_stream stream
+    bytes (each read or written once), 1 KB of frequencies a part and 8
+    bytes a lane (counts and states, or states and offsets)."""
+    ops = n_sym * (RANS_DECODE_OPS if decode else RANS_ENCODE_OPS) + RANS_BYTE_OPS * n_stream
+    return bound(n_sym + n_stream + 1024 * n_parts + 8 * n_lanes, ops)
+
+
+def rans_cases(np) -> list:
+    """Hard payloads: agc_tpu's test_entropy cases, every lane tier's edges,
+    last rows partly inactive, rare symbols of frequency 1 (two-byte
+    renorms), a single symbol (no emission), a raw escape, and a fuzz."""
+    rng = np.random.default_rng(SEED + 11)
+
+    def sym(alpha: int, n: int) -> bytes:
+        return rng.integers(0, alpha, n, dtype=np.uint16).astype(np.uint8).tobytes()
+
+    cases = [b"", b"Z", b"ACGT" * 64, sym(256, 10_000), sym(4, 200_000),
+             np.repeat(np.arange(5, dtype=np.uint8), 30_000).tobytes(), b"\x00" * 70_000,
+             sym(16, 1023), sym(16, 1024), sym(16, 63)]
+    cases += [sym(5, n) for n in (63, 64, 1023, 1024, 8191, 8192, 65535, 65536)]
+    cases += [sym(4, 256 * 70 + 13), sym(4, 1024 * 100 + 1)]
+    skew = np.zeros(50_000, dtype=np.uint8)
+    skew[rng.integers(0, len(skew), 12)] = rng.integers(1, 256, 12)
+    cases.append(skew.tobytes())
+    cases += [sym(int(rng.integers(1, 257)), int(rng.integers(1, 300_000))) for _ in range(10)]
+    return cases
+
+
+def rans_kernels(np, torch, D, E, dev, results) -> None:
+    """Phase 3: rans_encode on every hard case in one launch (all five lane
+    tiers) and rans_decode on each blob, against their plain versions on
+    the card, the blobs against the host native coder."""
+    cases = rans_cases(np)
+    live = [c for c in cases if c]
+    prep = D._prepare(live)
+    args = D._upload(prep, dev)
+    tiers = sorted(set(prep.meta[:, 2].tolist()))
+    check(tiers == [1, 8, 64, 256, 1024], f"the rANS cases cover tiers {tiers}")
+    got = D.rans_encode(*args)
+    want = D.rans_encode_plain(*args)
+    enc_err = max(max_abs_err(torch, a, b) for a, b in zip(got, want))
+    check(enc_err == 0, f"rans_encode disagrees with its plain version ({enc_err})")
+    blobs = D._assemble(prep, *D._download(*got))
+    check(blobs == [E.compress(c) for c in live], "rans_encode's blobs differ from the host coder's")
+    check(D.encode_batch(cases, dev) == [E.compress(c) for c in cases],
+          "encode_batch differs from the host coder")
+    dec_err, n_dec = 0, 0
+    for c, blob in zip(live, blobs):
+        dargs = D.blob_tensors(blob, dev)
+        if isinstance(dargs, bytes):  # a raw escape
+            check(dargs == c, "a raw-escape blob does not give its input")
+            continue
+        out = D.rans_decode(*dargs)
+        e = max_abs_err(torch, out, D.rans_decode_plain(*dargs))
+        check(e == 0 and out.cpu().numpy().tobytes() == c,
+              f"rans_decode of a {len(c)}-byte blob disagrees ({e})")
+        dec_err, n_dec = max(dec_err, e), n_dec + 1
+    print(f"rans_encode: {len(live)} parts of {len(prep.data)} bytes in one launch (lane tiers "
+          f"{tiers}), max_abs_err {enc_err}, every blob equal to the host coder's; rans_decode: "
+          f"{n_dec} blobs decoded to their inputs, max_abs_err {dec_err}")
+    results["rans_encode"] = dict(source="agc_tpu_torch/csrc/rans.cu",
+                                  replaces="agc_tpu/ops/device_rans.py:143",
+                                  max_abs_err=enc_err, library_ms=None)
+    results["rans_decode"] = dict(source="agc_tpu_torch/csrc/rans.cu",
+                                  replaces="agc_tpu/ops/device_rans.py:277",
+                                  max_abs_err=dec_err, library_ms=None)
+
+
+def rans_timing(np, torch, D, E, dev, results, card, payloads: list, blob: bytes) -> None:
+    """Both kernels at the shape of the largest flush: rans_encode over
+    its parts, rans_decode of the run's largest coded blob (raw escapes
+    are not decoded); the flush through encode_batch on the card and
+    through the host native coder."""
+    t0 = time.perf_counter()
+    D.encode_batch(payloads, dev)
+    card_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    for p in payloads:
+        E.compress(p)
+    host_s = time.perf_counter() - t0
+    live = [p for p in payloads if p]
+    prep = D._prepare(live)
+    args = D._upload(prep, dev)
+    flat, counts, states = D.rans_encode(*args)
+    re = results["rans_encode"]
+    re["ms"] = cuda_ms(torch, lambda: D.rans_encode(*args), 5)
+    re["plain_ms"] = cuda_ms(torch, lambda: D.rans_encode_plain(*args), 1)
+    re["bound"] = rans_bound(len(prep.data), flat.numel(), len(live), counts.numel(), False)
+    re["shape"] = (f"the largest flush: {len(live)} parts, {len(prep.data)} bytes, "
+                   f"{counts.numel()} lanes")
+    dargs = D.blob_tensors(blob, dev)
+    n = dargs[4]
+    rd = results["rans_decode"]
+    rd["ms"] = cuda_ms(torch, lambda: D.rans_decode(*dargs), 10)
+    rd["plain_ms"] = cuda_ms(torch, lambda: D.rans_decode_plain(*dargs), 1)
+    rd["bound"] = rans_bound(n, dargs[0].numel(), 1, dargs[2].numel(), True)
+    rd["shape"] = f"the largest coded blob: {n} symbols, {dargs[2].numel()} lanes"
+    print(f"rans_encode over {re['shape']}: {re['ms']:.4f} ms (bound {re['bound'][0]:.4f} ms, "
+          f"{re['bound'][1]}), plain {re['plain_ms']:.4f} ms; rans_decode of {n} symbols: "
+          f"{rd['ms']:.4f} ms (bound {rd['bound'][0]:.4f} ms), plain {rd['plain_ms']:.4f} ms; "
+          f"the flush through encode_batch on the card {card_s:.4f} s, through the host "
+          f"native coder {host_s:.4f} s ({card})")
+
+
+def rans_phase(np, torch, ck, D, E, CompressorParams, create_archive, append_archive,
+               ArchiveReader, AGCFile, results, card, tmp, wfiles, names, wseqs, files4,
+               cfiles) -> None:
+    """Phase 10: the device rANS coder at full width. See the module
+    docstring."""
+    alpha = np.frombuffer(ALPHA, dtype=np.uint8)
+    os.environ["AGC_TPU_RANS_DEVICE"] = "1"
+    flushes = []
+    split = dict.fromkeys(("prepare", "upload", "kernel", "download", "assemble"), 0.0)
+
+    def timed(key, fn):
+        def call(*args, **kw):
+            t0 = time.perf_counter()
+            got = fn(*args, **kw)
+            torch.cuda.synchronize()
+            split[key] += time.perf_counter() - t0
+            return got
+        return call
+
+    def keeping(payloads, device="cuda"):
+        blobs = real_parts(payloads, device)
+        flushes.append((payloads, blobs))
+        return blobs
+
+    stages = dict(_prepare="prepare", _upload="upload", rans_encode="kernel",
+                  _download="download", _assemble="assemble")
+    saved = {name: getattr(D, name) for name in stages}
+    real_parts = E.compress_parts
+    try:
+        for name, key in stages.items():
+            setattr(D, name, timed(key, saved[name]))
+        E.compress_parts = keeping
+        out = os.path.join(tmp, "rans.agc")
+        ck.reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        timers = create_archive(out, wfiles, CompressorParams(profile="tpu-rans", verbosity=1),
+                                device=DEVICE)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = dict(ck.LAUNCHES)
+    finally:
+        for name, fn in saved.items():
+            setattr(D, name, fn)
+        E.compress_parts = real_parts
+    check(launches["rans_encode"] > 0, "the tpu-rans create never launched rans_encode")
+    results["rans_encode"]["launches"] = launches["rans_encode"]
+    total = sum(len(c) for cs in wseqs.values() for c in cs)
+    n_parts = sum(len(p) for p, _ in flushes)
+    n_bytes = sum(len(x) for p, _ in flushes for x in p)
+    payloads, blobs = max(flushes, key=lambda f: sum(map(len, f[0])))
+    n_raw = sum(bool(b[1] & E._RAW_FLAG) for _, bs in flushes for b in bs if len(b) > 1)
+    print(f"tpu-rans create on the card (AGC_TPU_RANS_DEVICE=1): {total} bases in {wall:.4f} s "
+          f"= {total / wall / 1e6:.2f} Mbases/s ({card}); archive {os.path.getsize(out)} bytes; "
+          f"{len(flushes)} flushes, {n_parts} parts ({n_raw} raw escapes), {n_bytes} payload "
+          f"bytes; largest flush {len(payloads)} parts, {sum(map(len, payloads))} bytes; "
+          f"launches {launches}")
+    print("tpu-rans flush split (s, summed over flushes): " + json.dumps(
+        {k: round(v, 4) for k, v in split.items()}) + f" = {sum(split.values()):.4f} s")
+    print("tpu-rans stage timers (s): " + json.dumps(
+        {n: round(t, 4) for n, t in sorted(timers.times.items(), key=lambda kv: -kv[1])}))
+
+    # every part's blob against the host native coder on the same payload
+    t0 = time.perf_counter()
+    pairs = [(p, b) for ps, bs in flushes for p, b in zip(ps, bs)]
+    with ThreadPoolExecutor(8) as pool:
+        same = all(pool.map(lambda pb: E.compress(pb[0]) == pb[1], pairs))
+    print(f"tpu-rans blobs: {len(pairs)} equal to the host coder's: {same} "
+          f"({time.perf_counter() - t0:.1f} s)")
+    check(same, "a blob of the card's coder differs from the host coder's")
+    # up to 4096 coded blobs of the run back through decompress_device on
+    # the card (raw escapes decode on the host)
+    coded = [(p, b) for p, b in pairs if len(b) > 1 and not b[1] & E._RAW_FLAG]
+    check(coded, "every part of the tpu-rans create is a raw escape")
+    ck.reset_launches()
+    back = [D.decompress_device(b, len(p), DEVICE) for p, b in coded[:4096]]
+    results["rans_decode"]["launches"] = ck.LAUNCHES["rans_decode"]
+    check(back == [p for p, _ in coded[:4096]],
+          "decompress_device does not give the parts' payloads")
+    print(f"decompress_device: {len(back)} of the run's {len(coded)} coded blobs decoded on the "
+          f"card to their payloads ({results['rans_decode']['launches']} rans_decode launches)")
+    rans_timing(np, torch, D, E, torch.device(DEVICE), results, card, payloads,
+                max(coded, key=lambda pb: len(pb[0]))[1])
+    del flushes, pairs, payloads, blobs, back, coded
+    t0 = time.perf_counter()
+    with AGCFile(out) as agc:
+        for sname, contigs in wseqs.items():
+            for cname, seq in zip(names, contigs):
+                check(agc.GetCtgSeq(sname, cname).encode("latin-1") == alpha[seq].tobytes(),
+                      f"{cname}@{sname} does not extract byte-equal from the tpu-rans archive")
+    print(f"tpu-rans extract: {len(wseqs)} samples x {len(names)} contigs byte-equal "
+          f"({time.perf_counter() - t0:.1f} s)")
+
+    # chr scale: the card's coder and the host coder give equal archives
+    params = CompressorParams(profile="tpu-rans")
+    a, b = os.path.join(tmp, "rans_card.agc"), os.path.join(tmp, "rans_host.agc")
+    t0 = time.perf_counter()
+    create_archive(a, files4, params, device=DEVICE)
+    t_card = time.perf_counter() - t0
+    del os.environ["AGC_TPU_RANS_DEVICE"]
+    t0 = time.perf_counter()
+    create_archive(b, files4, params, device=DEVICE)
+    t_host = time.perf_counter() - t0
+    equal = same_archive(ArchiveReader, a, b)
+    print(f"tpu-rans at chr scale: card coder {t_card:.2f} s, host coder {t_host:.2f} s; "
+          f"archives equal part for part: {equal} ({card})")
+    check(equal, "the card's and the host's coders give different chr-scale archives")
+
+    # collection scale: create, then append, on the card and on the CPU
+    os.environ["AGC_TPU_RANS_DEVICE"] = "1"
+    try:
+        for label, base, inputs in (("create", None, cfiles[:2]),
+                                    ("append", ("rans_cc.agc", "rans_cpu_c.agc"), cfiles[2:])):
+            a = os.path.join(tmp, f"rans_c{label[0]}.agc")
+            b = os.path.join(tmp, f"rans_cpu_{label[0]}.agc")
+            on_cpu = cpu_create(b, inputs, params,
+                                base=None if base is None else os.path.join(tmp, base[1]))
+            t0 = time.perf_counter()
+            if base is None:
+                create_archive(a, inputs, params, device=DEVICE)
+            else:
+                append_archive(os.path.join(tmp, base[0]), a, inputs, params, device=DEVICE)
+            t_card = time.perf_counter() - t0
+            t_cpu = cpu_done(on_cpu)
+            equal = same_archive(ArchiveReader, a, b)
+            print(f"tpu-rans collection {label} ({len(inputs)} files): card {t_card:.2f} s, "
+                  f"CPU (plain versions) {t_cpu:.2f} s; archives equal part for part: {equal} "
+                  f"({card})")
+            check(equal, f"the card's and the CPU's tpu-rans {label} archives differ")
+    finally:
+        os.environ.pop("AGC_TPU_RANS_DEVICE", None)
+
+
 def main() -> int:
     started = time.perf_counter()
     import numpy as np
@@ -1242,11 +1574,14 @@ def main() -> int:
     from agc_tpu_torch import AGCFile
     from agc_tpu_torch.core import ArchiveReader
     from agc_tpu_torch.core import compressor as cmod
-    from agc_tpu_torch.core.compressor import Compressor, CompressorParams, create_archive
+    from agc_tpu_torch.core import entropy as E
+    from agc_tpu_torch.core.compressor import (Compressor, CompressorParams, append_archive,
+                                               create_archive)
     from agc_tpu_torch.core.lz import LZDiff
     from agc_tpu_torch.ops import _build
     from agc_tpu_torch.ops import cuda_kmers as ck
     from agc_tpu_torch.ops import cuda_match as cm
+    from agc_tpu_torch.ops import device_rans as D
     from agc_tpu_torch.ops import match as M
     from agc_tpu_torch.ops import kmers as tk
     from agc_tpu_torch.ops import u64
@@ -1569,6 +1904,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     programs = match_kernels(np, torch, cm, M, dev, results, card,
                              _build.lib().agc_match_estimate_tile())
+    rans_kernels(np, torch, D, E, dev, results)
     stamp("3")
 
     # -- 4. the main path: chr-scale create --------------------------------
@@ -1882,8 +2218,9 @@ def main() -> int:
         stamp("7")
 
         # -- 8. the adaptive create at full width -----------------------------
-        adaptive_create(np, torch, ck, tk, Compressor, CompressorParams, create_archive,
-                        ArchiveReader, AGCFile, results, card, tmp, wfiles[0], names, wseqs)
+        adaptive_create(np, torch, ck, tk, cmod, Compressor, CompressorParams, create_archive,
+                        ArchiveReader, AGCFile, results, programs, card, tmp, wfiles[0], names,
+                        wseqs)
 
         stamp("8")
 
@@ -1892,6 +2229,12 @@ def main() -> int:
                     create_archive, ArchiveReader, AGCFile, LZDiff, results, programs, card,
                     tmp, wfiles, names, wseqs, files, cfiles, ffiles, stamp)
         stamp("9")
+
+        # -- 10. the device rANS coder at full width -------------------------
+        rans_phase(np, torch, ck, D, E, CompressorParams, create_archive, append_archive,
+                   ArchiveReader, AGCFile, results, card, tmp, wfiles, names, wseqs, files,
+                   cfiles)
+        stamp("10")
     finally:
         for proc in CHILDREN:
             if proc.poll() is None:
@@ -1914,7 +2257,7 @@ def main() -> int:
               f"{r['bound'][0]:.4f} ms ({r['bound'][1]}), library "
               f"{r['library_ms'] if r['library_ms'] is None else round(r['library_ms'], 4)} ms "
               f"({r['shape']}; {card})")
-    print("match layer torch-op programs: " + json.dumps(programs))
+    print("torch-op programs: " + json.dumps(programs))
     print(f"chip_smoke.py: {time.perf_counter() - started:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -175,13 +175,15 @@ _BLOCK_REFERENCE = (
 def test_port_stands_alone(tmp_path):
     """With agc_tpu and jax blocked by a sys.meta_path finder, the port
     imports, creates on the CPU (default mode, -a -f, anchor mode with the
-    match layer's tables, and the forced estimate prepass), and extracts
-    byte-equal through its own AGCFile and its own CLI (getcol)."""
+    match layer's tables and the forced estimate prepass, and tpu-rans with
+    the forced device coder), and extracts byte-equal through its own
+    AGCFile and its own CLI (getcol)."""
     files = make_collection(tmp_path, random.Random(13), n_samples=1,
                             contig_lens=(30000, 9000))
     out = str(tmp_path / "x.agc")
     out_af = str(tmp_path / "af.agc")
     out_match = str(tmp_path / "match.agc")
+    out_rans = str(tmp_path / "rans.agc")
     got_dir = tmp_path / "got"
     got_dir.mkdir()
     code = _BLOCK_REFERENCE + (
@@ -199,7 +201,11 @@ def test_port_stands_alone(tmp_path):
         "segment_size=3000, lz_mode='anchor'), device='cpu')\n"
         "assert t.times['device_lz_tables'] > 0 and t.units['device_match'] > 0\n"
         "del os.environ['AGC_TPU_DEVICE_MATCH'], os.environ['AGC_TPU_DEVICE_LZ']\n"
-        f"for other in ({out_af!r}, {out_match!r}):\n"
+        "os.environ['AGC_TPU_RANS_DEVICE'] = '1'\n"
+        f"create_archive({out_rans!r}, {[p for _, p in files]!r}, CompressorParams("
+        "segment_size=3000, profile='tpu-rans'), device='cpu')\n"
+        "del os.environ['AGC_TPU_RANS_DEVICE']\n"
+        f"for other in ({out_af!r}, {out_match!r}, {out_rans!r}):\n"
         "    with agc_tpu_torch.AGCFile(other) as agc:\n"
         "        assert agc.GetCtgSeq('s0', 'c1') == agc_tpu_torch.AGCFile("
         f"{out!r}).GetCtgSeq('s0', 'c1')\n"
@@ -269,23 +275,6 @@ def test_cuda_device_without_cuda_raises(tmp_path):
                             contig_lens=(5000,))
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         Compressor(str(tmp_path / "x.agc"), reference_file=files[0][1])
-
-
-@pytest.mark.parametrize(
-    "params,env",
-    [
-        (CompressorParams(), {"AGC_TPU_RANS_DEVICE": "1"}),
-    ],
-)
-def test_unported_options_raise(tmp_path, monkeypatch, params, env):
-    from agc_tpu_torch.core.compressor import Compressor
-
-    for k, v in env.items():
-        monkeypatch.setenv(k, v)
-    out = tmp_path / "x.agc"
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        Compressor(str(out), params, reference_file="unused.fa", device="cpu")
-    assert not out.exists()
 
 
 def test_device_trace_writes_a_trace(tmp_path, monkeypatch):
