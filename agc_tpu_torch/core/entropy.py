@@ -12,7 +12,8 @@ This module holds
   (``compress_np`` / ``decompress_np``),
 - the batched part sink of the store (``EntropyBatcher``), which routes a
   flush to ``ops/device_rans.py`` when forced: on a CUDA device its
-  ``rans_encode`` kernel, on the CPU that kernel's plain PyTorch version.
+  kernels (tables, encode and blob writer), on the CPU their plain
+  PyTorch versions.
 
 Coder parameters: 32-bit state per lane, 8-bit renormalization,
 PROB_BITS=12 quantized frequencies, RANS_L=2^23. State invariants keep
@@ -424,8 +425,8 @@ def _device_batch_enabled(total_bytes: int) -> bool:
 
 
 def compress_parts(payloads: list[bytes], device="cuda") -> list[bytes]:
-    """Compress many parts at once: one batched ``rans_encode`` launch on
-    ``device`` when forced (see _device_batch_enabled), else the host
+    """Compress many parts at once: the whole flush coded on ``device``
+    (``device_rans.encode_batch``) when forced (see _device_batch_enabled), else the host
     coder per part."""
     if _device_batch_enabled(sum(len(p) for p in payloads)):
         from ..ops.device_rans import encode_batch

@@ -5,31 +5,43 @@
 // Replaces agc_tpu's XLA program _estimate_kernel
 // (agc_tpu/ops/match.py:363-452). For each pair it probes the candidate's
 // dual min/max hash-slot tables once a probe block (a strided seed key),
-// counts hits cumulatively, derives the blocks covered by a seed of
-// key_len symbols (q0 = key_len / stride whole blocks, then r =
-// key_len % stride symbols), counts uncovered ACGT symbols as literals,
-// and costs each covered run by the digits of its diagonal's jump from
-// the previous run's. The result equals agc_tpu's exactly: every step is
-// integer and in the same order.
+// finds the blocks covered by a seed of key_len symbols (q0 = key_len /
+// stride whole blocks, then r = key_len % stride symbols), counts uncovered
+// ACGT symbols as literals, and costs each covered run by the digits of its
+// diagonal's jump from the previous run's. The result equals agc_tpu's
+// exactly: every step is integer and in the same order.
 //
-// What bounds it on the H100: per probe block it reads the 8-byte key, the
-// two 4-byte ACGT counts and two random 8-byte slot entries (a 32-byte
-// sector each) of tables that, at the dispatch shape, do not fit in L2.
-// As torch ops the same function is ~25 launches that materialise ten
-// (P, T) int64 arrays; here one block walks one pair's probe grid in
-// tiles of 256 blocks, one a thread, and keeps everything else on chip:
-// a block scan of the hits and one of the packed (block, diagonal) run
-// starts, each carried into the next tile, and a halo of the last q0 + 1
-// prefix counts in shared memory for the coverage windows.
+// What bounds it on the H100: a probe is one random 16-byte slot entry of a
+// candidate's table (the bank keeps a slot's min and max entries side by
+// side, so one 32-byte sector), and at a whole-genome dispatch the bank's
+// tables (64 MiB) exceed the 50 MB L2. Read once each, the inputs take
+// ~0.03 ms; read a sector a probe from HBM, they take ten times that. So
+// the design is about where the sectors come from:
+//
+// - the wrapper sorts a dispatch's pairs by bank row (stable, on the card)
+//   and a persistent grid walks that order, a window of a few blocks an SM
+//   at a time: the pairs that probe one table run together, and after the
+//   first of them its sectors come from L2;
+// - a thread owns 4 consecutive probe blocks of a 1024-block tile, issues
+//   their 4 entry loads together, and scans them in registers. Coverage
+//   needs only the index of the last hit up to a block (a hit at u covers
+//   blocks u .. u + q0 - 1, and the offsets below r of u + q0), so a max-scan of
+//   it replaces the prefix counts and their halo; a second max-scan carries
+//   the latest (block, diagonal) run start. Each is a warp shuffle scan and
+//   one block-level combine through shared memory: 2 barriers a tile of
+//   1024 blocks.
+#include <climits>
 #include <cstdint>
 #include <cuda_runtime.h>
 
 namespace agc {
 namespace match {
 
-constexpr int kThreads = 256;  // probe blocks per tile, one a thread
+constexpr int kThreads = 256;
+constexpr int kPer = 4;                   // probe blocks a thread, consecutive
+constexpr int kTile = kThreads * kPer;    // probe blocks a tile
 constexpr int kWarps = kThreads / 32;
-constexpr int kHalo = 64;  // prefix counts kept from the previous tile (>= q0 + 1)
+constexpr int kMaxQ0 = 63;                // key_len / stride at most
 constexpr int kPosBits = 24;
 constexpr int kFpBits = 39;
 constexpr uint64_t kHashMul = 0x9E3779B97F4A7C15ull;
@@ -37,172 +49,203 @@ constexpr uint64_t kFpMul = 0xC2B2AE3D27D4EB4Full;
 constexpr int64_t kSlotSent = INT64_MAX;
 constexpr int64_t kPosMask = (int64_t(1) << kPosBits) - 1;
 constexpr int64_t kBias = int64_t(1) << 31;
+constexpr int32_t kNoHit = -(1 << 30);  // "no hit yet": covers nothing
 
 __device__ __forceinline__ int digits(int32_t x) {
   return 1 + (x >= 10) + (x >= 100) + (x >= 1000) + (x >= 10000) +
          (x >= 100000) + (x >= 1000000) + (x >= 10000000);
 }
 
-// Inclusive prefix sum over the block; `sh` holds one value a warp. The
-// caller synchronises before `sh` is used again.
-__device__ __forceinline__ int32_t block_sum_scan(int32_t v, int32_t* sh) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+// Inclusive max-scan over a warp.
+template <typename V>
+__device__ __forceinline__ V warp_max_scan(V v) {
+  const int lane = threadIdx.x & 31;
 #pragma unroll
   for (int o = 1; o < 32; o <<= 1) {
-    const int32_t u = __shfl_up_sync(0xffffffffu, v, o);
-    if (lane >= o) v += u;
-  }
-  if (lane == 31) sh[warp] = v;
-  __syncthreads();
-  if (warp == 0) {
-    int32_t w = lane < kWarps ? sh[lane] : 0;
-#pragma unroll
-    for (int o = 1; o < kWarps; o <<= 1) {
-      const int32_t u = __shfl_up_sync(0xffffffffu, w, o);
-      if (lane >= o) w += u;
-    }
-    if (lane < kWarps) sh[lane] = w;
-  }
-  __syncthreads();
-  return warp > 0 ? v + sh[warp - 1] : v;
-}
-
-// Inclusive prefix maximum over the block, the same way.
-__device__ __forceinline__ int64_t block_max_scan(int64_t v, int64_t* sh) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-#pragma unroll
-  for (int o = 1; o < 32; o <<= 1) {
-    const int64_t u = __shfl_up_sync(0xffffffffu, v, o);
+    const V u = __shfl_up_sync(0xffffffffu, v, o);
     if (lane >= o && u > v) v = u;
   }
-  if (lane == 31) sh[warp] = v;
-  __syncthreads();
-  if (warp == 0) {
-    int64_t w = lane < kWarps ? sh[lane] : -1;
-#pragma unroll
-    for (int o = 1; o < kWarps; o <<= 1) {
-      const int64_t u = __shfl_up_sync(0xffffffffu, w, o);
-      if (lane >= o && u > w) w = u;
-    }
-    if (lane < kWarps) sh[lane] = w;
-  }
-  __syncthreads();
-  if (warp > 0 && sh[warp - 1] > v) v = sh[warp - 1];
   return v;
 }
 
-// One block a pair. keys: i64[Q, T] seed keys (-1 = invalid); a_lo, a_hi:
-// i32[Q, T] ACGT counts of a block's offsets below / from r; nrun: i32[Q];
-// rows, cands: i32[P]; bta, btb: i64[R, H] min / max slot tables.
+// Persistent grid over the pairs in `order` (sorted by bank row). keys:
+// i64[Q, T] seed keys (-1 = invalid); a_lo, a_hi: i32[Q, T] ACGT counts of
+// a block's offsets below / from r; nrun: i32[Q]; rows, cands, order:
+// i32[P]; bank: {min, max} slot entries, i64[R, H, 2].
 __global__ void __launch_bounds__(kThreads) match_estimate_kernel(
     const int64_t* __restrict__ keys, const int32_t* __restrict__ a_lo,
     const int32_t* __restrict__ a_hi, const int32_t* __restrict__ nrun,
     const int32_t* __restrict__ rows, const int32_t* __restrict__ cands,
-    const int64_t* __restrict__ bta, const int64_t* __restrict__ btb,
-    int64_t T, int64_t H, int log2_h, int q0, int r, int stride,
-    int64_t* __restrict__ out) {
-  __shared__ int32_t cpre[kHalo + kThreads];  // prefix hit counts, halo first
-  __shared__ int64_t incl[kThreads];          // inclusive run-start maxima
-  __shared__ int32_t sum_sh[kWarps];
-  __shared__ int64_t max_sh[kWarps];
+    const int32_t* __restrict__ order, const longlong2* __restrict__ bank,
+    int64_t n_pairs, int64_t T, int64_t H, int log2_h, int q0, int r,
+    int stride, bool vec, int64_t* __restrict__ out) {
+  __shared__ int32_t hit_sh[kWarps];  // a warp's last hit block
+  __shared__ int64_t run_sh[kWarps];  // a warp's latest packed run start
   __shared__ int64_t red_sh[kWarps];
-  const int tid = threadIdx.x;
-  const int64_t row = rows[blockIdx.x];
-  const int64_t* kr = keys + row * T;
-  const int32_t* lo = a_lo + row * T;
-  const int32_t* hi = a_hi + row * T;
-  const int64_t* ta = bta + static_cast<int64_t>(cands[blockIdx.x]) * H;
-  const int64_t* tb = btb + static_cast<int64_t>(cands[blockIdx.x]) * H;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int hash_shift = 64 - log2_h;
-  for (int i = tid; i < kHalo; i += kThreads) cpre[i] = 0;  // c[t < 0] = 0
-  int32_t carry_c = 0;      // hits before this tile
-  int64_t carry_last = -1;  // latest run start before this tile
-  int64_t acc = 0;
-  __syncthreads();
-  for (int64_t t0 = 0; t0 < T; t0 += kThreads) {
-    const int64_t t = t0 + tid;
-    const bool in = t < T;
-    int32_t hit = 0, rpos = 0;
-    if (in) {
-      const int64_t q = kr[t];
-      if (q != -1) {
-        const uint64_t uq = static_cast<uint64_t>(q);
-        const int64_t bkt = static_cast<int64_t>((uq * kHashMul) >> hash_shift);
-        const int64_t fp = static_cast<int64_t>((uq * kFpMul) >> (64 - kFpBits));
-        const int64_t ea = ta[bkt];
-        const int64_t eb = tb[bkt];
-        const bool ha = ea != kSlotSent && (ea >> kPosBits) == fp;
-        const bool hb = eb >= 0 && (eb >> kPosBits) == fp;
-        hit = ha || hb;
-        rpos = ha ? static_cast<int32_t>(ea & kPosMask)
-                  : (hb ? static_cast<int32_t>(eb & kPosMask) : 0);
+  for (int64_t i = blockIdx.x; i < n_pairs; i += gridDim.x) {
+    const int pair = order[i];
+    const int64_t row = rows[pair];
+    const int64_t* kr = keys + row * T;
+    const int32_t* lr = a_lo + row * T;
+    const int32_t* hr = a_hi + row * T;
+    const longlong2* tab = bank + static_cast<int64_t>(cands[pair]) * H;
+    int32_t carry_hit = kNoHit;  // last hit block before this tile
+    int64_t carry_run = -1;      // latest packed run start before this tile
+    int64_t acc = 0;
+    for (int64_t t0 = 0; t0 < T; t0 += kTile) {
+      const int64_t tb = t0 + tid * kPer;
+      int64_t q[kPer];
+      int32_t lo[kPer], hi[kPer];
+      if (vec && tb + kPer <= T) {
+        const longlong2 k01 = *reinterpret_cast<const longlong2*>(kr + tb);
+        const longlong2 k23 = *reinterpret_cast<const longlong2*>(kr + tb + 2);
+        q[0] = k01.x; q[1] = k01.y; q[2] = k23.x; q[3] = k23.y;
+        const int4 h4 = *reinterpret_cast<const int4*>(hr + tb);
+        hi[0] = h4.x; hi[1] = h4.y; hi[2] = h4.z; hi[3] = h4.w;
+        if (r) {
+          const int4 l4 = *reinterpret_cast<const int4*>(lr + tb);
+          lo[0] = l4.x; lo[1] = l4.y; lo[2] = l4.z; lo[3] = l4.w;
+        } else {
+#pragma unroll
+          for (int j = 0; j < kPer; ++j) lo[j] = 0;
+        }
+      } else {
+#pragma unroll
+        for (int j = 0; j < kPer; ++j) {
+          const bool in = tb + j < T;
+          q[j] = in ? kr[tb + j] : -1;
+          hi[j] = in ? hr[tb + j] : 0;
+          lo[j] = in && r ? lr[tb + j] : 0;
+        }
+      }
+      // the 4 probes: every entry load issued before any is used
+      longlong2 e[kPer];
+#pragma unroll
+      for (int j = 0; j < kPer; ++j) {
+        const uint64_t uq = static_cast<uint64_t>(q[j]);
+        const int64_t bkt = q[j] != -1 ? static_cast<int64_t>((uq * kHashMul) >> hash_shift) : 0;
+        e[j] = __ldg(tab + bkt);
+      }
+      bool hit[kPer];
+      int32_t rpos[kPer];
+      int32_t th_last = kNoHit;
+#pragma unroll
+      for (int j = 0; j < kPer; ++j) {
+        const int64_t fp =
+            static_cast<int64_t>((static_cast<uint64_t>(q[j]) * kFpMul) >> (64 - kFpBits));
+        const bool ha = q[j] != -1 && e[j].x != kSlotSent && (e[j].x >> kPosBits) == fp;
+        const bool hb = q[j] != -1 && e[j].y >= 0 && (e[j].y >> kPosBits) == fp;
+        hit[j] = ha || hb;
+        rpos[j] = ha ? static_cast<int32_t>(e[j].x & kPosMask)
+                     : (hb ? static_cast<int32_t>(e[j].y & kPosMask) : 0);
+        if (hit[j]) th_last = static_cast<int32_t>(tb + j);
+      }
+      // last hit before this thread's first block
+      const int32_t hit_incl = warp_max_scan(th_last);
+      int32_t before = __shfl_up_sync(0xffffffffu, hit_incl, 1);
+      if (lane == 0) before = kNoHit;
+      if (lane == 31) hit_sh[warp] = hit_incl;
+      __syncthreads();
+      int32_t tile_hit = carry_hit;
+#pragma unroll
+      for (int w = 0; w < kWarps; ++w) {
+        const int32_t v = hit_sh[w];
+        if (w < warp && v > before) before = v;
+        if (v > tile_hit) tile_hit = v;
+      }
+      if (carry_hit > before) before = carry_hit;
+      carry_hit = tile_hit;
+      // coverage, literals and run starts, in block order
+      bool start[kPer];
+      int32_t diag[kPer];
+      int64_t th_run = -1;
+      int32_t prev = before;  // last hit up to the block before
+#pragma unroll
+      for (int j = 0; j < kPer; ++j) {
+        const int64_t t = tb + j;
+        const int32_t t32 = static_cast<int32_t>(t);
+        const int32_t last = hit[j] ? t32 : prev;
+        const bool cov_hi = last > t32 - q0;
+        const bool cov_lo = last >= t32 - q0;
+        const bool prev_hi = prev > t32 - 1 - q0;
+        const bool in = t < T;
+        start[j] = in && (r ? cov_lo : cov_hi) && !prev_hi;
+        diag[j] = rpos[j] - t32 * stride;
+        if (in) acc += (cov_lo ? 0 : lo[j]) + (cov_hi ? 0 : hi[j]);
+        if (start[j]) th_run = (t << 32) | (static_cast<int64_t>(diag[j]) + kBias);
+        prev = last;
+      }
+      // latest run start before this thread's first block
+      const int64_t run_incl = warp_max_scan(th_run);
+      int64_t run_before = __shfl_up_sync(0xffffffffu, run_incl, 1);
+      if (lane == 0) run_before = -1;
+      if (lane == 31) run_sh[warp] = run_incl;
+      __syncthreads();
+      int64_t tile_run = carry_run;
+#pragma unroll
+      for (int w = 0; w < kWarps; ++w) {
+        const int64_t v = run_sh[w];
+        if (w < warp && v > run_before) run_before = v;
+        if (v > tile_run) tile_run = v;
+      }
+      if (carry_run > run_before) run_before = carry_run;
+      carry_run = tile_run;
+#pragma unroll
+      for (int j = 0; j < kPer; ++j) {
+        if (!start[j]) continue;
+        const int32_t pd = run_before >= 0
+            ? static_cast<int32_t>((run_before & 0xFFFFFFFFll) - kBias) : 0;
+        const int32_t dd = diag[j] >= pd ? diag[j] - pd : pd - diag[j];
+        acc += digits(dd) + 4;
+        run_before = ((tb + j) << 32) | (static_cast<int64_t>(diag[j]) + kBias);
       }
     }
-    const int32_t c = carry_c + block_sum_scan(hit, sum_sh);
-    cpre[kHalo + tid] = c;
-    __syncthreads();
-    const int32_t* cp = cpre + kHalo + tid;
-    // a hit at block u covers blocks u .. u + q0 from offset r on, and
-    // u .. u + q0 + 1 below offset r
-    const bool cov_hi = c - cp[-q0] > 0;
-    const bool cov_lo = c - cp[-q0 - 1] > 0;
-    const bool prev_hi = t > 0 && cp[-1] - cp[-1 - q0] > 0;
-    const bool start = in && (r ? cov_lo : cov_hi) && !prev_hi;
-    const int32_t diag = rpos - static_cast<int32_t>(t * stride);
-    const int64_t packed =
-        start ? ((t << 32) | (static_cast<int64_t>(diag) + kBias)) : -1;
-    int64_t m = block_max_scan(packed, max_sh);
-    if (carry_last > m) m = carry_last;
-    incl[tid] = m;
-    if (in) acc += (cov_lo ? 0 : lo[t]) + (cov_hi ? 0 : hi[t]);
-    __syncthreads();
-    if (start) {
-      const int64_t prev = tid > 0 ? incl[tid - 1] : carry_last;
-      const int32_t pd =
-          prev >= 0 ? static_cast<int32_t>((prev & 0xFFFFFFFFll) - kBias) : 0;
-      const int32_t dd = diag >= pd ? diag - pd : pd - diag;
-      acc += digits(dd) + 4;
-    }
-    carry_c = cpre[kHalo + kThreads - 1];
-    carry_last = incl[kThreads - 1];
-    __syncthreads();
-    if (tid < kHalo) cpre[tid] = cpre[kThreads + tid];
-    __syncthreads();
-  }
 #pragma unroll
-  for (int o = 16; o > 0; o >>= 1) acc += __shfl_down_sync(0xffffffffu, acc, o);
-  if ((tid & 31) == 0) red_sh[tid >> 5] = acc;
-  __syncthreads();
-  if (tid == 0) {
-    int64_t s = nrun[row];
-    for (int w = 0; w < kWarps; ++w) s += red_sh[w];
-    out[blockIdx.x] = s;
+    for (int o = 16; o > 0; o >>= 1) acc += __shfl_down_sync(0xffffffffu, acc, o);
+    if (lane == 0) red_sh[warp] = acc;
+    __syncthreads();
+    if (tid == 0) {
+      int64_t s = nrun[row];
+      for (int w = 0; w < kWarps; ++w) s += red_sh[w];
+      out[pair] = s;
+    }
   }
 }
 
 }  // namespace match
 }  // namespace agc
 
-extern "C" int agc_match_estimate_tile() { return agc::match::kThreads; }
+extern "C" int agc_match_estimate_tile() { return agc::match::kTile; }
 
-// keys: i64[Q, T]; a_lo, a_hi: i32[Q, T]; nrun: i32[Q]; rows, cands:
-// i32[P]; bta, btb: i64[R, H], H = 2^log2_h; out: i64[P].
+// keys: i64[Q, T]; a_lo, a_hi: i32[Q, T]; nrun: i32[Q]; rows, cands,
+// order: i32[P] (order: the pairs sorted by cands); bank: i64[R, H, 2], H =
+// 2^log2_h, 16-byte aligned; out: i64[P] in pair order. grid: the
+// persistent grid's blocks.
 extern "C" int agc_match_estimate(const int64_t* keys, const int32_t* a_lo,
                                   const int32_t* a_hi, const int32_t* nrun,
                                   const int32_t* rows, const int32_t* cands,
-                                  const int64_t* bta, const int64_t* btb,
+                                  const int32_t* order, const int64_t* bank,
                                   int64_t n_pairs, int64_t T, int64_t H,
-                                  int log2_h, int key_len, int stride,
+                                  int log2_h, int key_len, int stride, int grid,
                                   int64_t* out, void* stream) {
   using namespace agc::match;
   if (n_pairs <= 0) return 0;
-  const int q0 = key_len / stride, r = key_len % stride;
-  if (stride <= 0 || q0 + 1 > kHalo || n_pairs > INT32_MAX ||
-      log2_h < 1 || log2_h > 62)
+  if (stride <= 0 || grid <= 0 || n_pairs > INT32_MAX || T >= (int64_t(1) << 30) ||
+      log2_h < 1 || log2_h > 62 || key_len / stride > kMaxQ0 ||
+      reinterpret_cast<uintptr_t>(bank) % 16 != 0)
     return static_cast<int>(cudaErrorInvalidValue);
-  match_estimate_kernel<<<static_cast<unsigned>(n_pairs), kThreads, 0,
+  const int q0 = key_len / stride, r = key_len % stride;
+  const int64_t g = n_pairs < grid ? n_pairs : grid;
+  // 16-byte loads of a thread's 4 blocks where every row starts aligned
+  const bool vec = T % 4 == 0 &&
+      (reinterpret_cast<uintptr_t>(keys) | reinterpret_cast<uintptr_t>(a_lo) |
+       reinterpret_cast<uintptr_t>(a_hi)) % 16 == 0;
+  match_estimate_kernel<<<static_cast<unsigned>(g), kThreads, 0,
                           static_cast<cudaStream_t>(stream)>>>(
-      keys, a_lo, a_hi, nrun, rows, cands, bta, btb, T, H, log2_h, q0, r,
-      stride, out);
+      keys, a_lo, a_hi, nrun, rows, cands, order,
+      reinterpret_cast<const longlong2*>(bank), n_pairs, T, H, log2_h, q0, r,
+      stride, vec, out);
   return static_cast<int>(cudaGetLastError());
 }

@@ -3,10 +3,12 @@
 Counterpart of agc_tpu's XLA program ``_estimate_kernel``
 (``agc_tpu/ops/match.py:363-452``): the approximate LZ token cost of every
 (segment row, candidate group) pair, from strided seed-key probes into the
-candidate's dual min/max hash-slot tables (``ops/match.py``'s ``RefBank``).
-The CUDA kernel (``csrc/match_estimate.cu``) walks one pair's probe grid a
-block; ``match_estimate_plain`` is the same function as torch ops, the
-oracle the kernel is held against and what runs for CPU tensors.
+candidate's dual min/max hash-slot tables (``ops/match.py``'s ``RefBank``),
+kept as one int64[R, H, 2] bank: a slot's min and max entries side by side.
+The CUDA kernel (``csrc/match_estimate.cu``) walks the pairs in bank-row
+order on a persistent grid, a block a pair at a time;
+``match_estimate_plain`` is the same function as torch ops, the oracle the
+kernel is held against and what runs for CPU tensors.
 
 Seed keys here are the raw unsigned 64-bit patterns held in int64 (-1 is
 agc_tpu's all-ones SENTINEL), not the flipped convention of ``ops/u64.py``:
@@ -29,7 +31,8 @@ _HASH_MUL = 0x9E3779B97F4A7C15  # splitmix64 golden-ratio multiplier
 _FP_MUL = 0xC2B2AE3D27D4EB4F  # xxhash64 prime_2
 _SLOT_SENT = (1 << 63) - 1  # empty slot of the min table
 _POS_MASK = (1 << _POS_BITS) - 1
-_HALO = 64  # csrc/match_estimate.cu's kHalo: key_len // stride + 1 at most
+_MAX_Q0 = 63  # csrc/match_estimate.cu's kMaxQ0: key_len // stride at most
+_BLOCKS_PER_SM = 4  # the persistent grid: pairs in flight an SM
 
 
 def _signed(x: int) -> int:
@@ -64,11 +67,17 @@ def shift_right(x: torch.Tensor, k: int) -> torch.Tensor:
     return out
 
 
-def match_estimate_plain(keys_s, a_lo, a_hi, nrun_tot, rows, cands, bta, btb,
+def slot_bank(ta: torch.Tensor, tb: torch.Tensor) -> torch.Tensor:
+    """min / max slot tables, int64[..., H] each -> one int64[..., H, 2]
+    bank, each slot's two entries side by side."""
+    return torch.stack((ta, tb), dim=-1)
+
+
+def match_estimate_plain(keys_s, a_lo, a_hi, nrun_tot, rows, cands, bank,
                          key_len: int, stride: int) -> torch.Tensor:
     """Plain version of ``match_estimate``: agc_tpu's ``_estimate_kernel``
-    as torch ops, step for step."""
-    h = btb.shape[1]
+    as torch ops, step for step, in the caller's pair order."""
+    h = bank.shape[1]
     log2_h = h.bit_length() - 1
     t = keys_s.shape[1]
     rows, cands = rows.long(), cands.long()
@@ -76,8 +85,8 @@ def match_estimate_plain(keys_s, a_lo, a_hi, nrun_tot, rows, cands, bta, btb,
     t_valid = qs != -1
     bkt = torch.where(t_valid, bucket_of(qs, log2_h), 0)
     flat = cands[:, None] * h + bkt
-    ea = bta.reshape(-1)[flat]
-    eb = btb.reshape(-1)[flat]
+    ea = bank[..., 0].reshape(-1)[flat]
+    eb = bank[..., 1].reshape(-1)[flat]
     fp = fp_of(qs)
     hit_a = t_valid & (ea != _SLOT_SENT) & ((ea >> _POS_BITS) == fp)
     hit_b = t_valid & (eb >= 0) & ((eb >> _POS_BITS) == fp)
@@ -107,15 +116,16 @@ def match_estimate_plain(keys_s, a_lo, a_hi, nrun_tot, rows, cands, bta, btb,
     return lits + run_cost.sum(dim=1) + nrun_tot[rows].long()
 
 
-def match_estimate(keys_s, a_lo, a_hi, nrun_tot, rows, cands, bta, btb,
+def match_estimate(keys_s, a_lo, a_hi, nrun_tot, rows, cands, bank,
                    key_len: int, stride: int) -> torch.Tensor:
     """Estimated token cost of each (row, candidate) pair.
 
     keys_s: int64[Q, T] strided seed keys (-1 invalid); a_lo, a_hi:
     int32[Q, T] ACGT counts of each probe block's offsets below / from
     ``key_len % stride``; nrun_tot: int32[Q] N-run cost; rows, cands:
-    int32[P] query row and bank row of each pair; bta, btb: int64[R, H]
-    min / max slot tables, H a power of two. Returns int64[P]."""
+    int32[P] query row and bank row of each pair; bank: int64[R, H, 2], the
+    min and max slot tables side by side (``slot_bank``), H a power of
+    two. Returns int64[P] in pair order."""
     _require(keys_s.dim() == 2 and keys_s.dtype == torch.int64,
              "match_estimate: keys_s must be int64[Q, T]")
     _require(a_lo.shape == keys_s.shape and a_hi.shape == keys_s.shape
@@ -126,25 +136,29 @@ def match_estimate(keys_s, a_lo, a_hi, nrun_tot, rows, cands, bta, btb,
     _require(rows.dim() == 1 and rows.shape == cands.shape
              and rows.dtype == torch.int32 and cands.dtype == torch.int32,
              "match_estimate: rows, cands must be int32[P]")
-    _require(bta.dim() == 2 and bta.shape == btb.shape and bta.dtype == torch.int64
-             and btb.dtype == torch.int64, "match_estimate: bta, btb must be int64[R, H]")
-    h = btb.shape[1]
+    _require(bank.dim() == 3 and bank.shape[2] == 2 and bank.dtype == torch.int64,
+             "match_estimate: bank must be int64[R, H, 2]")
+    h = bank.shape[1]
     _require(h >= 2 and h & (h - 1) == 0, "match_estimate: H must be a power of two")
-    _require(stride > 0 and key_len // stride + 1 <= _HALO,
-             f"match_estimate: key_len // stride must be below {_HALO}")
+    _require(stride > 0 and key_len // stride <= _MAX_Q0,
+             f"match_estimate: key_len // stride must be below {_MAX_Q0 + 1}")
     if keys_s.device.type == "cpu":
-        return match_estimate_plain(keys_s, a_lo, a_hi, nrun_tot, rows, cands,
-                                    bta, btb, key_len, stride)
-    _check_cuda("match_estimate", keys_s, a_lo, a_hi, nrun_tot, rows, cands, bta, btb)
+        return match_estimate_plain(keys_s, a_lo, a_hi, nrun_tot, rows, cands, bank,
+                                    key_len, stride)
+    _check_cuda("match_estimate", keys_s, a_lo, a_hi, nrun_tot, rows, cands, bank)
     p = rows.numel()
     out = torch.empty(p, dtype=torch.int64, device=keys_s.device)
     if p == 0:
         return out
     with torch.cuda.device(keys_s.device):
+        # the pairs that probe one table run together (csrc/match_estimate.cu)
+        order = torch.sort(cands, stable=True).indices.to(torch.int32)
+        grid = _BLOCKS_PER_SM * torch.cuda.get_device_properties(
+            keys_s.device).multi_processor_count
         rc = _build.lib().agc_match_estimate(
             keys_s.data_ptr(), a_lo.data_ptr(), a_hi.data_ptr(), nrun_tot.data_ptr(),
-            rows.data_ptr(), cands.data_ptr(), bta.data_ptr(), btb.data_ptr(),
-            p, keys_s.shape[1], h, h.bit_length() - 1, key_len, stride,
+            rows.data_ptr(), cands.data_ptr(), order.data_ptr(), bank.data_ptr(),
+            p, keys_s.shape[1], h, h.bit_length() - 1, key_len, stride, grid,
             out.data_ptr(), _stream(keys_s),
         )
     _build.check(rc, "match_estimate")

@@ -1,46 +1,54 @@
 """The device rANS coder of the tpu-rans profile: ``encode_batch``,
-``compress_device`` and ``decompress_device`` around two hand-written
-kernels, ``rans_encode`` and ``rans_decode`` (``csrc/rans.cu``).
+``compress_device`` and ``decompress_device`` around four hand-written
+kernels (``csrc/rans.cu``): ``rans_tables``, ``rans_encode`` and
+``rans_write`` code a store flush, ``rans_decode`` decodes one blob.
 
 Counterpart of agc_tpu's ``ops/device_rans.py``. Its blobs are byte-equal
-to the host coder's (``core/entropy.py``): the same lane-interleaved state
-machine, the same uint32 arithmetic, the same blob assembly. The frequency
-tables are quantized on the host by ``entropy.quantize_freqs`` for every
-engine, so all of them consume identical tables.
+to the host coder's (``core/entropy.py``): the tables follow
+``entropy.quantize_freqs``' integer rule, and the state machine, its
+uint32 arithmetic and the blob layout of ``entropy.assemble_blob`` are the
+same.
 
 Which engine runs where:
 
-- CUDA tensors (``device="cuda"``): the kernels. ``rans_encode`` codes
-  every part of a flush in one launch, one block a part and one thread a
-  lane, then compacts the lanes' streams into one flat buffer (a prefix
-  sum of their byte counts and a gather kernel); ``rans_decode`` decodes
-  one blob, one thread a lane.
-- CPU tensors (``device="cpu"``): their plain PyTorch versions,
-  ``rans_encode_plain`` (agc_tpu's ``_encode_batch_fn``: a loop over steps
-  of (B, L) int64 ops, one group of parts a lane tier) and
-  ``rans_decode_plain`` (``_decode_fn``). They are the oracle the kernels
-  are held against; nothing runs them for a CUDA tensor.
+- CUDA tensors (``device="cuda"``): the kernels. A flush is uploaded once
+  (its parts' bytes, a meta row a part and the encode's schedule) and
+  coded on the card in three steps: ``rans_tables`` (each part's
+  histogram and quantized frequencies, and the encoder's reciprocal
+  table), ``rans_encode`` (every lane of every part: its byte count and
+  final state) and ``rans_write`` (each part's whole blob, or its raw
+  escape, at offsets from a prefix sum of the blob sizes; the coded parts'
+  lanes run again and write their bytes in place); the host downloads one
+  buffer and the offsets, and slices it. ``rans_decode`` decodes one blob,
+  one thread a lane.
+- CPU tensors (``device="cpu"``): their plain PyTorch versions
+  (``rans_tables_plain``: bincounts and ``quantize_plain``, the same
+  closed form of ``quantize_freqs`` as torch ops across parts;
+  ``rans_encode_plain``: agc_tpu's ``_encode_batch_fn``, a loop over
+  steps of (B, L) int64 ops a lane tier, dividing by f;
+  ``rans_write_plain``: its streams, and the blobs by scatters; ``rans_decode_plain``:
+  ``_decode_fn``). They are the oracle the kernels are held against;
+  nothing runs them for a CUDA tensor.
 - The engine reaches this module only when ``AGC_TPU_RANS_DEVICE`` forces
   it (``entropy.compress_parts``); otherwise the host's native coder codes
   every part.
 
 agc_tpu groups a batch by (lane tier, pow2 steps bucket), cuts the groups
 into chunks of 512 parts and pads shapes to powers of two, for XLA's
-compile cache and its TPU link. None of that changes a byte (padded slots
-are inactive), and there is no compile cache here, so one ragged launch
-takes the whole flush.
+compile cache and its TPU link. None of that changes a byte, and there is
+no compile cache here, so one ragged launch a kernel takes the whole flush.
 
 ``encode_batch`` runs as five module functions, looked up at call time so
-that a caller can time each: ``_prepare`` (host: concatenation, symbol
-counts, ``quantize_freqs``, one meta row a part), ``_upload``,
-``rans_encode``, ``_download`` and ``_assemble`` (blob headers, with the
-lane-length varints built by numpy, and ``assemble_blob``'s raw-escape
-decision).
+that a caller can time each: ``_prepare`` (host: concatenation, one meta
+row a part and the encode's work rows, from the lengths alone),
+``_upload``, ``code_flush`` (the three kernels), ``_download`` and
+``_slice``.
 
 State arithmetic in the plain versions is int64 (torch has no uint32
 shift): states stay below 2^31 and ``f * (x >> 12) + slot`` below 2^31,
 so every value is exact; the decoder masks to 32 bits where the kernel's
-uint32 would wrap on a damaged blob.
+uint32 would wrap on a damaged blob. uint32 tables (the reciprocals) are
+held in int32 tensors, bit for bit.
 """
 
 from __future__ import annotations
@@ -58,6 +66,11 @@ _X_MAX_BASE = (E.RANS_L >> E.PROB_BITS) << 8  # x_max = _X_MAX_BASE * f
 _M32 = 0xFFFFFFFF
 _LANES = (1, 8, 64, 256, 1024)
 _EMPTY_BLOB = bytes([E.MAGIC, 0, 0])  # header of n = 0
+_CHUNK = 1 << 16  # csrc/rans.cu's kChunk: bytes of a part a histogram / raw-copy block
+# rans_encode's work rows (csrc/rans.cu): (kind, index into sel, first lane
+# or parts)
+_BLOCK_PART, _WARP_PART, _LANE_PART = 0, 1, 2
+_BLOCK_LANES, _WARP_PARTS, _LANE_PARTS = 256, 8, 256  # a block's lanes or parts
 
 
 def _lanes_np(lens: np.ndarray) -> np.ndarray:
@@ -68,20 +81,201 @@ def _lanes_np(lens: np.ndarray) -> np.ndarray:
     return lanes
 
 
+def _as_i32(v: torch.Tensor) -> torch.Tensor:
+    """uint32 values (int64) -> the int32 tensor of the same bits."""
+    return torch.where(v >= 1 << 31, v - (1 << 32), v).to(torch.int32)
+
+
+def varint_len(v: torch.Tensor) -> torch.Tensor:
+    """LEB128 byte count of each non-negative int64 value."""
+    edges = torch.tensor([1 << (7 * k) for k in range(1, 9)], dtype=torch.int64,
+                         device=v.device)
+    return torch.bucketize(v.to(torch.int64).contiguous(), edges, right=True) + 1
+
+
+def varints(v: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """LEB128 bytes of each non-negative value, concatenated (uint8), and
+    each value's byte count."""
+    v = v.to(torch.int64).reshape(-1)
+    nbytes = varint_len(v)
+    width = int(nbytes.max()) if v.numel() else 1
+    k = torch.arange(width, device=v.device)
+    groups = (v[:, None] >> (7 * k)) & 0x7F
+    more = (k[None, :] < nbytes[:, None] - 1).to(torch.int64) << 7
+    return (groups | more)[k[None, :] < nbytes[:, None]].to(torch.uint8), nbytes
+
+
+def _ranges(starts: torch.Tensor, lens: torch.Tensor) -> torch.Tensor:
+    """The indices start .. start + len - 1 of every range, concatenated."""
+    lens = lens.to(torch.int64)
+    total = int(lens.sum()) if lens.numel() else 0
+    first = torch.cumsum(lens, 0) - lens
+    idx = torch.arange(total, device=lens.device)
+    return torch.repeat_interleave(starts - first, lens, output_size=total) + idx
+
+
+def _put_varints(out: torch.Tensor, pos: torch.Tensor, v: torch.Tensor) -> None:
+    """Write the varint of each value at its position in ``out``."""
+    b, nb = varints(v)
+    out[_ranges(pos.reshape(-1), nb)] = b
+
+
+# ---------------------------------------------------------------------------
+# rans_tables
+# ---------------------------------------------------------------------------
+
+
+def quantize_plain(counts: torch.Tensor) -> torch.Tensor:
+    """``entropy.quantize_freqs`` of every row of int64[P, 256] counts
+    (each row's sum > 0), as torch ops across rows, in the closed form the
+    ``rans_tables`` kernel computes: q = c * 4096 // total, every present
+    symbol raised to 1; then, for diff = 4096 - sum(q) > 0, each present
+    symbol gets diff // m, and the first diff % m of them by (-rem, symbol)
+    one more (the +1s cycle over the m present symbols); for diff < 0, the
+    passes of -1 over (rem, symbol) each take from the symbols with q > 1
+    then, so K - 1 whole passes take min(q - 1, K - 1) from each and pass K
+    one from the first of the symbols with q > K, K the least pass whose
+    running total reaches -diff."""
+    c = counts.to(torch.int64)
+    dev = c.device
+    total = c.sum(dim=1, keepdim=True)
+    q = c * E.PROB_SCALE // total
+    rem = c * E.PROB_SCALE % total
+    present = c > 0
+    q = torch.where(present & (q == 0), 1, q)
+    diff = E.PROB_SCALE - q.sum(dim=1, keepdim=True)
+    sym = torch.arange(256, dtype=torch.int64, device=dev)
+
+    def rank(key):  # position of each entry in its row, keys ascending
+        return torch.argsort(torch.argsort(key, dim=1, stable=True), dim=1)
+
+    m = present.sum(dim=1, keepdim=True)
+    up = rank(torch.where(present, -(rem * 256 + (255 - sym)) - 1, 0))
+    plus = torch.where(present, diff.clamp(min=0) // m + (up < diff.clamp(min=0) % m), 0)
+    need = (-diff).clamp(min=0)
+
+    def taken(k):  # decrements in passes 1 .. k
+        return torch.minimum((q - 1).clamp(min=0), k).sum(dim=1, keepdim=True)
+
+    lo = torch.ones_like(need)
+    hi = torch.full_like(need, E.PROB_SCALE)
+    for _ in range(13):  # the least K in [1, 4096] with taken(K) >= need
+        mid = (lo + hi) // 2
+        ok = taken(mid) >= need
+        hi = torch.where(ok, mid, hi)
+        lo = torch.where(ok, lo, mid + 1)
+    k_last = lo
+    eligible = q > k_last
+    down = rank(torch.where(eligible, rem * 256 + sym, 1 << 62))
+    minus = (torch.minimum((q - 1).clamp(min=0), k_last - 1)
+             + (eligible & (down < need - taken(k_last - 1))).to(torch.int64))
+    q = torch.where(diff > 0, q + plus, torch.where(diff < 0, q - minus, q))
+    return q.to(torch.int32)
+
+
+def enc_table_plain(freqs: torch.Tensor) -> torch.Tensor:
+    """The encoder's symbol table of int32[P, 256] frequencies, as
+    ``rans_tables`` writes it: int32[P, 256, 2] (uint32 bits), the
+    reciprocal ceil(2^(shift + 31) / f) with 2^(shift - 1) < f <= 2^shift
+    (0xFFFFFFFF for f = 1), then bias | (shift - 1) << 13 | f << 17 with
+    bias = the cumulative frequency (+ 4095 for f = 1); 0 for f = 0."""
+    f = freqs.to(torch.int64)
+    start = torch.cumsum(f, dim=1) - f
+    shift = torch.zeros_like(f)
+    for b in range(13):  # the bit length of f - 1
+        shift = shift + ((f - 1) >= (1 << b)).to(torch.int64)
+    fs = f.clamp(min=2)
+    rcp = ((1 << (shift.clamp(min=1) + 31)) + fs - 1) // fs
+    word = start | ((shift - 1).clamp(min=0) << 13) | (f << 17)
+    rcp = torch.where(f == 1, _M32, rcp)
+    word = torch.where(f == 1, (start + E.PROB_SCALE - 1) | (1 << 17), word)
+    rcp = torch.where(f == 0, 0, rcp)
+    word = torch.where(f == 0, 0, word)
+    return _as_i32(torch.stack((rcp, word), dim=-1))
+
+
+def _part_ids(meta: torch.Tensor, per: torch.Tensor) -> torch.Tensor:
+    """The part of each of ``per[p]`` consecutive items of every part."""
+    return torch.repeat_interleave(torch.arange(meta.shape[0], device=meta.device), per)
+
+
+def rans_tables_plain(data: torch.Tensor, meta: torch.Tensor):
+    """Plain version of ``rans_tables``: each part's bincount, then
+    ``quantize_plain`` and ``enc_table_plain``."""
+    p = meta.shape[0]
+    off, n = meta[:, 0], meta[:, 1]
+    pid = _part_ids(meta, n)
+    sym = data[_ranges(off, n)].long()
+    counts = torch.zeros(p * 256, dtype=torch.int64, device=data.device)
+    counts.index_add_(0, pid * 256 + sym, torch.ones_like(sym))
+    freqs = quantize_plain(counts.reshape(p, 256))
+    return freqs, enc_table_plain(freqs)
+
+
+def _check_flush(name: str, data: torch.Tensor, meta: torch.Tensor) -> None:
+    _require(data.dim() == 1 and data.dtype == torch.uint8, f"{name}: data must be uint8[N]")
+    _require(meta.dim() == 2 and meta.shape[1] == 4 and meta.dtype == torch.int64
+             and meta.shape[0] > 0, f"{name}: meta must be int64[P, 4], P > 0")
+
+
+def _check_chunks(name: str, chunks: torch.Tensor) -> None:
+    _require(chunks.dim() == 2 and chunks.shape[1] == 2 and chunks.dtype == torch.int64,
+             f"{name}: chunks must be int64[C, 2]")
+
+
+def rans_tables(data: torch.Tensor, meta: torch.Tensor, chunks: torch.Tensor):
+    """Each part's quantized frequencies and the encoder's symbol table.
+
+    data: uint8[N], the parts' symbols concatenated; meta: int64[P, 4], a
+    row a part: data offset, length n >= 1, lanes ``lanes_for(n)``, its
+    first lane in the flush; chunks: int64[C, 2], (part, start) of every 64 KB of every
+    part. ``_prepare`` builds these. Returns (int32[P, 256] frequencies,
+    equal to ``entropy.quantize_freqs`` of each part's counts; int32[P,
+    256, 2] the table of ``enc_table_plain``)."""
+    _check_flush("rans_tables", data, meta)
+    _check_chunks("rans_tables", chunks)
+    if data.device.type == "cpu":
+        return rans_tables_plain(data, meta)
+    _check_cuda("rans_tables", data, meta, chunks)
+    _require(data.data_ptr() % 16 == 0, "rans_tables: data must be 16-byte aligned")
+    p = meta.shape[0]
+    counts = torch.zeros((p, 256), dtype=torch.int32, device=data.device)
+    freqs = torch.empty((p, 256), dtype=torch.int32, device=data.device)
+    enc = torch.empty((p, 256, 2), dtype=torch.int32, device=data.device)
+    with torch.cuda.device(data.device):
+        rc = _build.lib().agc_rans_tables(data.data_ptr(), data.numel(), meta.data_ptr(),
+                                          chunks.data_ptr(),
+                                          chunks.shape[0], p, counts.data_ptr(),
+                                          freqs.data_ptr(), enc.data_ptr(), _stream(data))
+    _build.check(rc, "rans_tables")
+    _count("rans_tables")
+    return freqs, enc
+
+
 # ---------------------------------------------------------------------------
 # rans_encode
 # ---------------------------------------------------------------------------
 
 
-def rans_encode_plain(data: torch.Tensor, meta: torch.Tensor, freqs: torch.Tensor):
-    """Plain version of ``rans_encode``: agc_tpu's ``_encode_batch_fn``
-    over each lane tier's parts, then ``_pack_part_streams``' reversed
-    masks, placed at the lanes' prefix-sum offsets."""
+def _n_lanes(meta: torch.Tensor) -> int:
+    """Lanes of a flush: its last part's first lane and lane count."""
+    _off, _n, n_lane, lane0 = meta[-1].tolist()
+    return lane0 + n_lane
+
+
+def _encode_plain(data: torch.Tensor, meta: torch.Tensor, enc: torch.Tensor):
+    """agc_tpu's ``_encode_batch_fn`` over each lane tier's parts (x // f
+    and x % f, the frequencies and their cumulative sums taken from
+    ``enc``), then ``_pack_part_streams``' reversed masks: (uint8 the lanes'
+    streams in decode order, lane after lane; int32[lanes] their byte
+    counts; int32[lanes] final states, uint32 bits)."""
     dev = data.device
     rows = meta.tolist()
-    n_lanes = rows[-1][3] + rows[-1][2] if rows else 0
+    n_lanes = _n_lanes(meta)
     counts = torch.zeros(n_lanes, dtype=torch.int32, device=dev)
     states = torch.zeros(n_lanes, dtype=torch.int32, device=dev)
+    f_all = (enc[..., 1].long() >> 17) & 0x1FFF
+    c_all = torch.cumsum(f_all, dim=1) - f_all
     tiers: dict[int, list[int]] = {}
     for i, row in enumerate(rows):
         tiers.setdefault(row[2], []).append(i)
@@ -95,8 +289,7 @@ def rans_encode_plain(data: torch.Tensor, meta: torch.Tensor, freqs: torch.Tenso
         pos = torch.arange(steps, dtype=torch.int64, device=dev)[:, None] * n_lane + lane
         live = pos[None] < lens[:, None, None]  # (B, steps, L)
         grid = data[torch.where(live, off[:, None, None] + pos[None], 0)].long()
-        f_tab = freqs[ix].long()
-        c_tab = torch.cumsum(f_tab, dim=1) - f_tab
+        f_tab, c_tab = f_all[ix], c_all[ix]
         x = torch.full((b, n_lane), E.RANS_L, dtype=torch.int64, device=dev)
         bts = torch.zeros((steps, b, n_lane, 2), dtype=torch.uint8, device=dev)
         cnts = torch.zeros((steps, b, n_lane), dtype=torch.uint8, device=dev)
@@ -118,56 +311,176 @@ def rans_encode_plain(data: torch.Tensor, meta: torch.Tensor, freqs: torch.Tenso
         msk = (two < cnts[..., None]).permute(1, 2, 0, 3).reshape(b, n_lane, 2 * steps).flip(-1)
         lanes_ix = (lane0[:, None] + lane).reshape(-1)
         counts[lanes_ix] = msk.sum(-1).reshape(-1).to(torch.int32)
-        states[lanes_ix] = x.reshape(-1).to(torch.int32)
+        states[lanes_ix] = _as_i32(x.reshape(-1))
         packed.append((lanes_ix, arr, msk))
     lane_out = torch.cumsum(counts, 0, dtype=torch.int64) - counts
-    out = torch.empty(int(counts.sum()), dtype=torch.uint8, device=dev)
+    flat = torch.empty(int(counts.sum()), dtype=torch.uint8, device=dev)
     for lanes_ix, arr, msk in packed:
         rank = torch.cumsum(msk, dim=-1) - 1
         dst = lane_out[lanes_ix].reshape(msk.shape[:2])[..., None] + rank
-        out[dst[msk]] = arr[msk]
-    return out, counts, states
+        flat[dst[msk]] = arr[msk]
+    return flat, counts, states
 
 
-def rans_encode(data: torch.Tensor, meta: torch.Tensor, freqs: torch.Tensor):
-    """Encode the parts of a flush in one launch.
+def rans_encode_plain(data: torch.Tensor, meta: torch.Tensor, enc: torch.Tensor,
+                      sel: torch.Tensor | None = None, work: torch.Tensor | None = None):
+    """Plain version of ``rans_encode``: the counts and states of
+    ``_encode_plain``. The schedule (``sel``, ``work``) changes no output
+    and is not read."""
+    _flat, counts, states = _encode_plain(data, meta, enc)
+    return counts, states
 
-    data: uint8[N], the parts' symbols concatenated; meta: int64[P, 5], a
-    row a part: data offset, length n >= 1, lanes ``lanes_for(n)``, its
-    first lane in the flush, the base of its lanes' regions (each lane
-    2 * ceil(n / L) bytes); freqs: int32[P, 256] quantized frequencies.
-    ``_prepare`` builds these; the kernel trusts their offsets. Returns
-    (uint8[S] the lanes' streams in decode order, lane after lane;
-    int32[lanes] their byte counts; int32[lanes] final states)."""
-    _require(data.dim() == 1 and data.dtype == torch.uint8, "rans_encode: data must be uint8[N]")
-    _require(meta.dim() == 2 and meta.shape[1] == 5 and meta.dtype == torch.int64,
-             "rans_encode: meta must be int64[P, 5]")
-    _require(freqs.shape == (meta.shape[0], 256) and freqs.dtype == torch.int32,
-             "rans_encode: freqs must be int32[P, 256]")
-    if data.device.type == "cpu":
-        return rans_encode_plain(data, meta, freqs)
-    _check_cuda("rans_encode", data, meta, freqs)
+
+def rans_encode(data: torch.Tensor, meta: torch.Tensor, enc: torch.Tensor,
+                sel: torch.Tensor, work: torch.Tensor):
+    """Run every lane of every part of a flush in one launch: each lane's
+    byte count and final state (``rans_write`` runs the coded parts' lanes
+    again to write their bytes in place, once the blobs' offsets are known).
+
+    data, meta: as for ``rans_tables``; enc: its symbol table; sel:
+    int32[P] the parts in work order, work: int32[B, 3] a row a block
+    (kind, index into sel, first lane or parts), both from ``_prepare``.
+    Returns (int32[lanes] the streams' byte counts; int32[lanes] final
+    states, uint32 bits)."""
+    _check_flush("rans_encode", data, meta)
     p = meta.shape[0]
-    _require(p > 0, "rans_encode: no part")
-    _off, n, n_lane, lane0, base = meta[-1].tolist()
-    region = torch.empty(base + n_lane * 2 * -(-n // n_lane), dtype=torch.uint8,
-                         device=data.device)
-    counts = torch.empty(lane0 + n_lane, dtype=torch.int32, device=data.device)
+    _require(enc.shape == (p, 256, 2) and enc.dtype == torch.int32,
+             "rans_encode: enc must be int32[P, 256, 2]")
+    _require(sel.shape == (p,) and sel.dtype == torch.int32
+             and work.dim() == 2 and work.shape[1] == 3 and work.dtype == torch.int32,
+             "rans_encode: sel must be int32[P], work int32[B, 3]")
+    if data.device.type == "cpu":
+        return rans_encode_plain(data, meta, enc, sel, work)
+    _check_cuda("rans_encode", data, meta, enc, sel, work)
+    counts = torch.empty(_n_lanes(meta), dtype=torch.int32, device=data.device)
     states = torch.empty_like(counts)
-    lib = _build.lib()
     with torch.cuda.device(data.device):
-        rc = lib.agc_rans_encode(data.data_ptr(), meta.data_ptr(), freqs.data_ptr(), p,
-                                 region.data_ptr(), counts.data_ptr(), states.data_ptr(),
-                                 _stream(data))
-        _build.check(rc, "rans_encode")
-        lane_out = torch.cumsum(counts, 0, dtype=torch.int64) - counts
-        out = torch.empty(int(lane_out[-1] + counts[-1]), dtype=torch.uint8,
-                          device=data.device)
-        rc = lib.agc_rans_compact(region.data_ptr(), meta.data_ptr(), counts.data_ptr(),
-                                  lane_out.data_ptr(), p, out.data_ptr(), _stream(data))
-    _build.check(rc, "rans_compact")
+        rc = _build.lib().agc_rans_encode(
+            data.data_ptr(), meta.data_ptr(), enc.data_ptr(), sel.data_ptr(), work.data_ptr(),
+            work.shape[0], counts.data_ptr(), states.data_ptr(), _stream(data))
+    _build.check(rc, "rans_encode")
     _count("rans_encode")
-    return out, counts, states
+    return counts, states
+
+
+# ---------------------------------------------------------------------------
+# rans_write
+# ---------------------------------------------------------------------------
+
+
+def _lane_sums(meta: torch.Tensor, v: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """(each part's sum of the per-lane values v, each lane's exclusive
+    prefix within its part)."""
+    cs = torch.zeros(v.numel() + 1, dtype=torch.int64, device=v.device)
+    cs[1:] = torch.cumsum(v.to(torch.int64), 0)
+    lane0, n_lane = meta[:, 3], meta[:, 2]
+    pid = _part_ids(meta, n_lane)
+    return cs[lane0 + n_lane] - cs[lane0], cs[:-1] - cs[lane0][pid]
+
+
+def blob_offsets(meta: torch.Tensor, freqs: torch.Tensor, counts: torch.Tensor):
+    """The layout of a flush's blobs, from the sizes of
+    ``entropy.assemble_blob`` (header, 256 frequency varints, a lane-length
+    varint and 4 state bytes a lane, the streams; or the raw escape, header
+    + n, where that is not smaller): (int64[P + 1] each blob's offset in
+    the flush's buffer; int64[P] where its streams start in that buffer, -1
+    for a raw escape; int64[lanes + 1] the exclusive prefix sum of the
+    lanes' byte counts)."""
+    n, n_lane, lane0 = meta[:, 1], meta[:, 2], meta[:, 3]
+    head = 2 + varint_len(n)
+    lane_cs = torch.zeros(counts.numel() + 1, dtype=torch.int64, device=counts.device)
+    lane_cs[1:] = torch.cumsum(counts, 0)
+    vl = torch.zeros_like(lane_cs)
+    vl[1:] = torch.cumsum(varint_len(counts), 0)
+    streams = (head + varint_len(freqs).sum(dim=1) + 4 * n_lane
+               + vl[lane0 + n_lane] - vl[lane0])
+    coded = streams + lane_cs[lane0 + n_lane] - lane_cs[lane0]
+    raw = coded >= head + n
+    blob_off = torch.zeros(n.numel() + 1, dtype=torch.int64, device=n.device)
+    blob_off[1:] = torch.cumsum(torch.where(raw, head + n, coded), 0)
+    return blob_off, torch.where(raw, -1, blob_off[:-1] + streams), lane_cs
+
+
+def rans_write_plain(data, meta, freqs, enc, counts, states, blob_off):
+    """Plain version of ``rans_write``: the streams of ``_encode_plain``,
+    every blob byte by scatters."""
+    dev = data.device
+    flat, _counts, _states = _encode_plain(data, meta, enc)
+    out = torch.zeros(int(blob_off[-1]), dtype=torch.uint8, device=dev)
+    off, n, n_lane, lane0 = meta.unbind(1)
+    at = blob_off[:-1]
+    head = 2 + varint_len(n)
+    raw = blob_off[1:] - at == head + n
+    log2_l = torch.zeros_like(n_lane)
+    for k in range(1, 11):
+        log2_l += (n_lane >= 1 << k).to(torch.int64)
+    out[at] = E.MAGIC
+    out[at + 1] = torch.where(raw, E._RAW_FLAG, log2_l).to(torch.uint8)
+    _put_varints(out, at + 2, n)
+    r = raw.nonzero().squeeze(1)
+    out[_ranges(at[r] + head[r], n[r])] = data[_ranges(off[r], n[r])]
+    coded = ~raw
+    fv = varint_len(freqs)
+    fpos = (at + head)[:, None] + torch.cumsum(fv, dim=1) - fv
+    _put_varints(out, fpos[coded], freqs[coded])
+    pid = _part_ids(meta, n_lane)
+    keep = coded[pid]
+    l_bytes, l_at = _lane_sums(meta, varint_len(counts))
+    _s_bytes, s_at = _lane_sums(meta, counts)
+    lens_at = (at + head + fv.sum(dim=1))[pid]
+    _put_varints(out, (lens_at + l_at)[keep], counts[keep])
+    local = torch.arange(pid.numel(), device=dev) - lane0[pid]
+    states_at = lens_at + l_bytes[pid] + 4 * local
+    for k in range(4):
+        out[states_at[keep] + k] = ((states[keep].long() >> (8 * k)) & 0xFF).to(torch.uint8)
+    src = torch.cumsum(counts, 0) - counts
+    dst = lens_at + l_bytes[pid] + 4 * n_lane[pid] + s_at
+    out[_ranges(dst[keep], counts[keep])] = flat[_ranges(src[keep], counts[keep])]
+    return out
+
+
+def rans_write(data: torch.Tensor, meta: torch.Tensor, chunks: torch.Tensor,
+               sel: torch.Tensor, work: torch.Tensor, freqs: torch.Tensor, enc: torch.Tensor,
+               counts: torch.Tensor, states: torch.Tensor):
+    """Every part's blob of ``entropy.assemble_blob`` (or its raw escape)
+    into one buffer: (uint8[S] the blobs back to back, int64[P + 1] their
+    offsets). Inputs: the flush as ``rans_encode`` takes it (data, meta,
+    chunks, sel, work), ``rans_tables``' outputs and ``rans_encode``'s on
+    it; the coded parts' lanes run again and write their streams in
+    place."""
+    _check_flush("rans_write", data, meta)
+    _check_chunks("rans_write", chunks)
+    p = meta.shape[0]
+    _require(freqs.shape == (p, 256) and freqs.dtype == torch.int32
+             and enc.shape == (p, 256, 2) and enc.dtype == torch.int32,
+             "rans_write: freqs must be int32[P, 256], enc int32[P, 256, 2]")
+    _require(counts.dim() == 1 and counts.shape == states.shape
+             and counts.dtype == torch.int32 and states.dtype == torch.int32,
+             "rans_write: counts, states must be int32[lanes]")
+    blob_off, stream_at, lane_cs = blob_offsets(meta, freqs, counts)
+    if data.device.type == "cpu":
+        return rans_write_plain(data, meta, freqs, enc, counts, states, blob_off), blob_off
+    _check_cuda("rans_write", data, meta, chunks, sel, work, freqs, enc, counts, states)
+    out = torch.empty(int(blob_off[-1]), dtype=torch.uint8, device=data.device)
+    with torch.cuda.device(data.device):
+        rc = _build.lib().agc_rans_write(
+            data.data_ptr(), meta.data_ptr(), chunks.data_ptr(), chunks.shape[0],
+            enc.data_ptr(), sel.data_ptr(), work.data_ptr(), work.shape[0], freqs.data_ptr(),
+            counts.data_ptr(), states.data_ptr(), blob_off.data_ptr(), stream_at.data_ptr(),
+            lane_cs.data_ptr(), p, out.data_ptr(), _stream(data))
+    _build.check(rc, "rans_write")
+    _count("rans_write")
+    return out, blob_off
+
+
+def code_flush(data: torch.Tensor, meta: torch.Tensor, chunks: torch.Tensor,
+               sel: torch.Tensor, work: torch.Tensor):
+    """A flush's blobs on ``data``'s device: ``rans_tables``, then
+    ``rans_encode``, then ``rans_write``. Returns (uint8 blobs back to back,
+    int64[P + 1] offsets)."""
+    freqs, enc = rans_tables(data, meta, chunks)
+    counts, states = rans_encode(data, meta, enc, sel, work)
+    return rans_write(data, meta, chunks, sel, work, freqs, enc, counts, states)
 
 
 # ---------------------------------------------------------------------------
@@ -250,94 +563,75 @@ def rans_decode(stream: torch.Tensor, lane_off: torch.Tensor, states: torch.Tens
 
 @dataclass
 class Prepared:
-    """A flush's non-empty parts on the host: symbols, meta rows, tables."""
+    """A flush's non-empty parts on the host: symbols, meta rows, the
+    encode's schedule."""
 
     data: np.ndarray  # uint8[N]
-    meta: np.ndarray  # int64[P, 5], rans_encode's rows
-    freqs: np.ndarray  # int32[P, 256]
+    meta: np.ndarray  # int64[P, 4]
+    chunks: np.ndarray  # int64[C, 2]
+    sel: np.ndarray  # int32[P]
+    work: np.ndarray  # int32[B, 3]
+
+
+def _work_rows(kind: int, first: int, count: int, per: int) -> np.ndarray:
+    starts = np.arange(first, first + count, per)
+    return np.stack([np.full_like(starts, kind), starts,
+                     np.minimum(per, first + count - starts)], axis=1)
 
 
 def _prepare(parts: list) -> Prepared:
+    """What the lengths give: offsets, lane tiers, meta rows, the 64 KB
+    chunks and the encode's work rows (large parts first, 256 lanes a
+    block, then the warp parts, then the one-lane parts)."""
     lens = np.fromiter(map(len, parts), dtype=np.int64, count=len(parts))
     data = np.concatenate([np.frombuffer(p, dtype=np.uint8) for p in parts])
     offs = np.cumsum(lens) - lens
     lanes = _lanes_np(lens)
     lane0 = np.cumsum(lanes) - lanes
-    region = lanes * 2 * (-(-lens // lanes))
-    freqs = np.stack([
-        E.quantize_freqs(np.bincount(data[o : o + n], minlength=256))
-        for o, n in zip(offs.tolist(), lens.tolist())
+    meta = np.stack([offs, lens, lanes, lane0], axis=1)
+    n_chunks = -(-lens // _CHUNK)
+    c_part = np.repeat(np.arange(len(lens)), n_chunks)
+    c_start = (np.arange(len(c_part)) - np.repeat(np.cumsum(n_chunks) - n_chunks, n_chunks))
+    chunks = np.stack([c_part, c_start * _CHUNK], axis=1)
+    groups = (np.flatnonzero(lanes >= 256), np.flatnonzero((lanes == 8) | (lanes == 64)),
+              np.flatnonzero(lanes == 1))
+    first = np.cumsum([0] + [len(g) for g in groups])
+    per_big = lanes[groups[0]] // _BLOCK_LANES
+    big = np.repeat(np.arange(len(groups[0])), per_big)
+    big_lane = (np.arange(len(big)) - np.repeat(np.cumsum(per_big) - per_big, per_big))
+    work = np.concatenate([
+        np.stack([np.full_like(big, _BLOCK_PART), big, big_lane * _BLOCK_LANES], axis=1)
+        .reshape(-1, 3),
+        _work_rows(_WARP_PART, int(first[1]), len(groups[1]), _WARP_PARTS),
+        _work_rows(_LANE_PART, int(first[2]), len(groups[2]), _LANE_PARTS),
     ]).astype(np.int32)
-    meta = np.stack([offs, lens, lanes, lane0, np.cumsum(region) - region], axis=1)
-    return Prepared(data, meta, freqs)
+    return Prepared(data, meta, chunks, np.concatenate(groups).astype(np.int32), work)
 
 
 def _upload(prep: Prepared, dev: torch.device):
-    return tuple(torch.from_numpy(a).to(dev) for a in (prep.data, prep.meta, prep.freqs))
+    return tuple(torch.from_numpy(a).to(dev)
+                 for a in (prep.data, prep.meta, prep.chunks, prep.sel, prep.work))
 
 
-def _download(flat: torch.Tensor, counts: torch.Tensor, states: torch.Tensor):
-    return flat.cpu().numpy(), counts.cpu().numpy(), states.cpu().numpy()
+def _download(out: torch.Tensor, blob_off: torch.Tensor):
+    return out.cpu().numpy(), blob_off.cpu().tolist()
 
 
-def varints(v: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
-    """LEB128 bytes of each non-negative value, concatenated (uint8), and
-    each value's byte count."""
-    v = np.asarray(v, dtype=np.uint64).reshape(-1)
-    nbytes = np.ones(v.shape, dtype=np.int64)
-    rest = v >> np.uint64(7)
-    while rest.any():
-        nbytes += rest > 0
-        rest >>= np.uint64(7)
-    width = int(nbytes.max()) if v.size else 1
-    k = np.arange(width, dtype=np.int64)
-    groups = (v[:, None] >> (np.uint64(7) * k.astype(np.uint64))) & np.uint64(0x7F)
-    more = (k[None, :] < nbytes[:, None] - 1).astype(np.uint64) << np.uint64(7)
-    return (groups | more).astype(np.uint8)[k[None, :] < nbytes[:, None]], nbytes
-
-
-def _assemble(prep: Prepared, flat: np.ndarray, counts: np.ndarray,
-              states: np.ndarray) -> list[bytes]:
-    """The blobs of ``entropy.assemble_blob``: header, frequency and
-    lane-length varints, states, streams, or the raw escape where rANS
-    would not pay."""
-    offs, lens, lanes, lane0, _ = prep.meta.T.tolist()
-    n_parts = len(lens)
-    f_bytes, f_n = varints(prep.freqs)
-    f_end = np.cumsum(f_n.reshape(n_parts, 256).sum(axis=1)).tolist()
-    l_bytes, l_n = varints(counts)
-    l_end = np.cumsum(np.add.reduceat(l_n, lane0)).tolist()
-    s_end = np.cumsum(np.add.reduceat(counts.astype(np.int64), lane0)).tolist()
-    f_bytes, l_bytes = f_bytes.tobytes(), l_bytes.tobytes()
-    st, fl = states.astype("<u4").tobytes(), flat.tobytes()
-    blobs = []
-    f0 = l0 = s0 = 0
-    for p in range(n_parts):
-        n, n_lane = lens[p], lanes[p]
-        head = bytearray((E.MAGIC, n_lane.bit_length() - 1))
-        E._put_varint(head, n)
-        blob = b"".join((head, f_bytes[f0 : f_end[p]], l_bytes[l0 : l_end[p]],
-                         st[4 * lane0[p] : 4 * (lane0[p] + n_lane)], fl[s0 : s_end[p]]))
-        if len(blob) >= n + 2 + E._varint_len(n):
-            raw = bytearray((E.MAGIC, E._RAW_FLAG))
-            E._put_varint(raw, n)
-            blob = bytes(raw) + prep.data[offs[p] : offs[p] + n].tobytes()
-        blobs.append(blob)
-        f0, l0, s0 = f_end[p], l_end[p], s_end[p]
-    return blobs
+def _slice(flat: np.ndarray, blob_off: list) -> list[bytes]:
+    view = memoryview(flat)
+    return [bytes(view[a:b]) for a, b in zip(blob_off[:-1], blob_off[1:])]
 
 
 def encode_batch(payloads: list, device="cuda") -> list[bytes]:
     """Blobs byte-identical to ``entropy.compress`` of each payload, every
-    non-empty part coded in one ``rans_encode`` launch on ``device``."""
+    non-empty part coded in one ``code_flush`` on ``device``."""
     dev = resolve_device(device)
     out = [_EMPTY_BLOB] * len(payloads)
     live = [i for i, p in enumerate(payloads) if len(p)]
     if not live:
         return out
-    prep = _prepare([payloads[i] for i in live])
-    host = _download(*rans_encode(*_upload(prep, dev)))
-    for i, blob in zip(live, _assemble(prep, *host)):
+    blobs = _slice(*_download(*code_flush(*_upload(_prepare([payloads[i] for i in live]), dev))))
+    for i, blob in zip(live, blobs):
         out[i] = blob
     return out
 

@@ -50,6 +50,7 @@ from .cuda_match import (
     digits,
     fp_of,
     match_estimate,
+    slot_bank,
 )
 from .kmers import pack4_np
 
@@ -419,8 +420,10 @@ class RefBank:
     One entry per group id: dual min/max hash-slot tables ``(ta, tb, h)``
     on ``device`` (``ref_slot_tables``), LRU-evicted to ``budget_bytes``
     (AGC_TPU_MATCH_BANK_BYTES, 2 GiB by default). Entries sharing a slot
-    width are also kept consolidated in one (R, h) matrix per width, so a
-    batched estimate reads candidate rows of one matrix."""
+    width are also kept consolidated in one (R, h, 2) matrix per width,
+    each slot's min and max entries side by side (``slot_bank``), so a
+    batched estimate reads candidate rows of one matrix and a probe one
+    16-byte entry."""
 
     _GET_MANY_ROWS = 64  # references indexed a dispatch
 
@@ -431,7 +434,7 @@ class RefBank:
             os.environ.get("AGC_TPU_MATCH_BANK_BYTES", str(2 << 30))
         )
         self._entries: OrderedDict[int, tuple] = OrderedDict()
-        # slot width m -> [min matrix (R, m), max matrix (R, m), row gids]
+        # slot width m -> [bank (R, m, 2), row gids]
         self._built: dict[int, list] = {}
         self._row_of: dict[int, tuple[int, int]] = {}  # gid -> (m, row)
         self._bytes = 0
@@ -477,8 +480,8 @@ class RefBank:
             if self._row_of.pop(ogid, None) is not None:
                 blt = self._built.pop(om, None)
                 if blt is not None:
-                    self._bytes -= blt[0].numel() * 16
-                    for g in blt[2]:
+                    self._bytes -= blt[0].numel() * 8
+                    for g in blt[1]:
                         self._row_of.pop(g, None)
 
     def get_many(self, gids, codes_provider) -> None:
@@ -506,7 +509,7 @@ class RefBank:
 
     def rows_for(self, gids_entries: list):
         """Consolidated-matrix rows for each (gid, (ta, tb, h)), all of one
-        slot width, with that width's (min, max) matrices, under one lock
+        slot width, with that width's (R, m, 2) bank, under one lock
         acquisition. Missing rows are written in one update; duplicate
         gids share a row."""
         with self._lock:
@@ -519,32 +522,31 @@ class RefBank:
             if missing:
                 m = missing[0][1][2]
                 blt = self._built.get(m)
-                base = len(blt[2]) if blt is not None else 0
+                base = len(blt[1]) if blt is not None else 0
                 need = base + len(missing)
                 if blt is None:
                     cap = _pow4(need, 64)
-                    blt = [
-                        torch.full((cap, m), _SLOT_SENT, dtype=torch.int64, device=self.device),
-                        torch.full((cap, m), -1, dtype=torch.int64, device=self.device),
-                        [],
-                    ]
+                    blt = [self._empty_rows(cap, m), []]
                     self._built[m] = blt
                     self._bytes += cap * m * 16
                 elif need > blt[0].shape[0]:
                     old_cap = blt[0].shape[0]
                     cap = _pow4(need, old_cap * 4)
-                    pad = cap - old_cap
-                    blt[0] = torch.cat([blt[0], blt[0].new_full((pad, m), _SLOT_SENT)])
-                    blt[1] = torch.cat([blt[1], blt[1].new_full((pad, m), -1)])
-                    self._bytes += pad * m * 16
-                blt[0][base:need] = torch.stack([e[0] for _, e in missing])
-                blt[1][base:need] = torch.stack([e[1] for _, e in missing])
+                    blt[0] = torch.cat([blt[0], self._empty_rows(cap - old_cap, m)])
+                    self._bytes += (cap - old_cap) * m * 16
+                blt[0][base:need] = slot_bank(torch.stack([e[0] for _, e in missing]),
+                                              torch.stack([e[1] for _, e in missing]))
                 for i, (g, _e) in enumerate(missing):
                     self._row_of[g] = (m, base + i)
-                blt[2].extend(g for g, _ in missing)
+                blt[1].extend(g for g, _ in missing)
             rows = [self._row_of[g][1] for g, _ in gids_entries]
-            blt = self._built[self._row_of[gids_entries[0][0]][0]]
-            return rows, blt[0], blt[1]
+            return rows, self._built[self._row_of[gids_entries[0][0]][0]][0]
+
+    def _empty_rows(self, n: int, m: int) -> torch.Tensor:
+        """n bank rows of m empty slots: min entry _SLOT_SENT, max -1."""
+        rows = torch.full((n, m, 2), -1, dtype=torch.int64, device=self.device)
+        rows[..., 0] = _SLOT_SENT
+        return rows
 
 
 # ---------------------------------------------------------------------------
@@ -607,12 +609,12 @@ def _estimate_bucket(live: list[MatchQuery], bank: RefBank, ref_codes_of, seg_b:
     # pairs a dispatch: ~64 M probe-grid elements at stride 1
     p_fixed = max(64, (64 << 20) // seg_b)
     for _m, all_items in by_width.items():
-        crows, bsk, bsp = bank.rows_for([(gid, e) for _row, gid, e, _q, _ci in all_items])
+        crows, slots = bank.rows_for([(gid, e) for _row, gid, e, _q, _ci in all_items])
         for lo in range(0, len(all_items), p_fixed):
             items = all_items[lo : lo + p_fixed]
             rows = torch.tensor([it[0] for it in items], dtype=torch.int32, device=dev)
             cands = torch.tensor(crows[lo : lo + len(items)], dtype=torch.int32, device=dev)
-            ests = match_estimate(keys_s, a_lo, a_hi, nrun_tot, rows, cands, bsk, bsp,
+            ests = match_estimate(keys_s, a_lo, a_hi, nrun_tot, rows, cands, slots,
                                   key_len, stride)
             results.append((ests, items))
     for ests, items in results:

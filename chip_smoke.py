@@ -43,11 +43,14 @@ Phases (any failure exits non-zero before the result line):
    dispatch shape of a whole-genome prepass (1024 pairs x 16,384 probe
    blocks, bank rows of 65,536 slots); the match layer's torch-op programs
    (segment rows, slot tables, split search, anchor join and select) timed
-   at their shapes; rans_encode (every part of a flush in one launch) on
-   hard payloads in one launch that holds all five lane tiers (agc_tpu's
-   entropy cases, each tier's edges, last rows partly inactive, rare
-   symbols of frequency 1, a raw escape, a fuzz), against its plain version
-   on the card and its blobs against the host native coder, and
+   at their shapes; the flush coder's three kernels, rans_tables (counts
+   and quantized frequencies), rans_encode (every lane of every part) and
+   rans_write (the blobs), on hard payloads in one flush that holds all
+   five lane tiers (agc_tpu's entropy cases, each tier's edges, last rows
+   partly inactive, rare symbols of frequency 1, a raw escape, every
+   symbol once, a dominant symbol among 255 rare ones, 300 one-lane parts,
+   a fuzz), each against its plain version on the card, the tables against
+   quantize_freqs and the blobs against the host native coder, and
    rans_decode on each coded blob against its plain version and the input;
 4. the main path: a chr-scale create (one 64 Mbase reference contig with
    repeat families + 2 resequenced samples, default parameters) through
@@ -118,12 +121,13 @@ Phases (any failure exits non-zero before the result line):
 10. the device rANS coder (AGC_TPU_RANS_DEVICE=1) at full width: the
    phase 7 input with --profile tpu-rans on the card: wall, Mbases/s,
    stage timers, flushes, parts and payload bytes, the flushes' seconds
-   split into host preparation, upload, kernel, download and blob
-   assembly (the stages of ops/device_rans.py wrapped with timers), launch
-   counts; every blob of the run against the host native coder on its
-   payload, up to 4096 coded blobs decoded on the card through
-   decompress_device, both kernels timed at the largest flush's shape
-   beside the host coder on the same flush, every sample extracted
+   split into host preparation, upload, code (rans_tables + rans_encode +
+   rans_write on the card), download and slice (the stages of
+   ops/device_rans.py wrapped with timers), launch counts; every blob of
+   the run against the host native coder on its payload, every part's
+   tables against quantize_freqs, up to 4096 coded blobs decoded on the
+   card through decompress_device, the kernels timed at the largest
+   flush's shape beside the host coder on the same flush, every sample extracted
    byte-equal; phase 4's input with the card's coder and with the host
    coder (archives equal part for part); phase 6's collection, create and
    then append, on the card and on the CPU (plain versions, in a process
@@ -209,16 +213,15 @@ def canon_bound(n_packed: int) -> tuple[float, str]:
     return bound(n_packed + 16 * n_packed, 40 * n_packed)
 
 
-def dir_rc_bound(n_packed: int, n_lookups: int | None = None) -> tuple[float, str]:
+def dir_rc_bound(n_packed: int, index_bytes: int | None = None) -> tuple[float, str]:
     """kmer_dir_rc over n_packed bytes (2 positions each): 0.5 byte in and
     17 out a position (two int64 codes and the valid flag); with a set, 18
-    out (the member flag) and, for each of the n_lookups valid positions,
-    one 32-byte sector of the walk index's directory and one of its table
-    (neither fits in L2 at the main path's sets); the two orientations
-    rolled in 64 bits, 20 int32 operations a position."""
-    if n_lookups is None:
+    out (the member flag) and the walk index (its singletons and directory,
+    index_bytes) read once; the two orientations rolled in 64 bits, 20
+    int32 operations a position."""
+    if index_bytes is None:
         return bound(n_packed + 34 * n_packed, 40 * n_packed)
-    return bound(n_packed + 36 * n_packed + 64 * n_lookups, 40 * n_packed)
+    return bound(n_packed + 36 * n_packed + index_bytes, 40 * n_packed)
 
 
 def dir_rc_hard(np, torch, ck, u64, hard) -> int:
@@ -909,7 +912,7 @@ def estimate_case(np, torch, M, dev, rng, key_len: int, stride: int, t: int, til
     refs = [rng.integers(0, 4, int(rng.integers(2 * key_len, b)), dtype=np.uint8)
             for _ in range(n_refs)]
     packed = M._packed_rows(refs, b, dev)
-    bta, btb = M.ref_slot_tables(packed, key_len, log2_h)
+    bank = M.slot_bank(*M.ref_slot_tables(packed, key_len, log2_h))
     ref_keys = M._start_keys(packed, key_len)[:, ::4]
     pool = ref_keys[ref_keys != -1]
     first = ref_keys[0][ref_keys[0] != -1]
@@ -935,20 +938,35 @@ def estimate_case(np, torch, M, dev, rng, key_len: int, stride: int, t: int, til
     rows[:q] = np.arange(q)
     cands[2] = cands[3] = 0
     cands[-1] = n_refs - 1
-    return keys.contiguous(), a_lo, a_hi, nrun, on(rows), on(cands), bta, btb
+    return keys.contiguous(), a_lo, a_hi, nrun, on(rows), on(cands), bank
 
 
-def estimate_bound(torch, keys_s, rows, cands) -> tuple[float, str]:
-    """match_estimate: the keys and the two ACGT counts of each query row
-    used read once (16 bytes a probe block), two 32-byte sectors (one a
-    slot table) for each valid probe of each pair, 4 + 4 bytes in and 8 out
-    a pair; the hashes and scans are a few dozen integer operations a probe
-    block, far below the bytes."""
+def estimate_bound(torch, cm, keys_s, rows, cands, bank, key_len: int,
+                   stride: int) -> tuple[tuple[float, str], float]:
+    """match_estimate, each input read once: the keys and ACGT counts of
+    each query row used (12 bytes a probe block, 16 where key_len % stride
+    leaves a low part), of each bank row used its table's bytes or the
+    32-byte sectors its pairs' valid probes touch, where fewer, and 4 + 4
+    bytes in and 8 out a pair; 40 int32 operations a probe block a pair
+    (two 64-bit hashes, the compares, the scans and the literal sums).
+    Returns (the bound, and PR 8's count in ms: 16 bytes a probe block of a
+    used row and two sectors for every valid probe of every pair)."""
     t = keys_s.shape[1]
-    used = torch.unique(rows.long())
-    valid = int((keys_s[rows.long()] != -1).sum())
+    h = bank.shape[1]
+    rows, cands = rows.long(), cands.long()
+    used = torch.unique(rows)
+    qs = keys_s[rows]
+    valid = qs != -1
+    sectors = torch.unique(cands[:, None].expand_as(qs)[valid] * (h // 2)
+                           + (cm.bucket_of(qs[valid], h.bit_length() - 1) >> 1))
+    per_row = torch.bincount(sectors // (h // 2), minlength=bank.shape[0])
+    table_bytes = int(torch.minimum(per_row * 32, torch.full_like(per_row, 16 * h))
+                      [torch.unique(cands)].sum())
     n_pairs = rows.numel()
-    return bound(16 * t * used.numel() + 64 * valid + 16 * n_pairs, 40 * t * n_pairs)
+    row_bytes = (16 if key_len % stride else 12) * t * used.numel()
+    ops = 40 * t * n_pairs
+    old = bound(16 * t * used.numel() + 64 * int(valid.sum()) + 16 * n_pairs, ops)[0]
+    return bound(row_bytes + table_bytes + 16 * n_pairs, ops), old
 
 
 def estimate_dispatch(np, torch, M, dev, rng, n_segs: int = 64, n_cands: int = 16):
@@ -984,9 +1002,8 @@ def match_kernels(np, torch, cm, M, dev, results, card, tile: int) -> dict:
             args = estimate_case(np, torch, M, dev, rng, key_len, stride, 3 * tile + 37, tile)
             got = cm.match_estimate(*args, key_len, stride)
             e = max_abs_err(torch, got, cm.match_estimate_plain(*args, key_len, stride))
-            keys, a_lo, a_hi, nrun, rows, cands, bta, btb = args
-            one = (keys, a_lo, a_hi, nrun, rows, torch.zeros_like(cands),
-                   bta[:1].contiguous(), btb[:1].contiguous())
+            keys, a_lo, a_hi, nrun, rows, cands, bank = args
+            one = (keys, a_lo, a_hi, nrun, rows, torch.zeros_like(cands), bank[:1].contiguous())
             e1 = max_abs_err(torch, cm.match_estimate(*one, key_len, stride),
                              cm.match_estimate_plain(*one, key_len, stride))
             print(f"match_estimate hard case key_len={key_len} stride={stride}: "
@@ -1001,7 +1018,8 @@ def match_kernels(np, torch, cm, M, dev, results, card, tile: int) -> dict:
     key_len, stride = 17, 4
     keys_s, a_lo, a_hi, nrun = M.seg_rows_strided(spacked, lens, key_len, stride)
     bta, btb = M.ref_slot_tables(rpacked, key_len, log2_h)
-    args = (keys_s, a_lo, a_hi, nrun, rows, cands, bta, btb, key_len, stride)
+    bank = cm.slot_bank(bta, btb)
+    args = (keys_s, a_lo, a_hi, nrun, rows, cands, bank, key_len, stride)
     got = cm.match_estimate(*args)
     want = cm.match_estimate_plain(*args)
     e = max_abs_err(torch, got, want)
@@ -1009,6 +1027,7 @@ def match_kernels(np, torch, cm, M, dev, results, card, tile: int) -> dict:
     by_seg = got.reshape(keys_s.shape[0] // 2, -1)  # its own reference first
     check(bool((by_seg[:, 0] < by_seg[:, 1:].min(dim=1).values).all()),
           "a segment's own reference is not its best estimate")
+    est_bound, old_bound = estimate_bound(torch, cm, keys_s, rows, cands, bank, key_len, stride)
     results["match_estimate"] = dict(
         source="agc_tpu_torch/csrc/match_estimate.cu",
         replaces="agc_tpu/ops/match.py:363",
@@ -1016,14 +1035,15 @@ def match_kernels(np, torch, cm, M, dev, results, card, tile: int) -> dict:
         ms=cuda_ms(torch, lambda: cm.match_estimate(*args), 10),
         plain_ms=cuda_ms(torch, lambda: cm.match_estimate_plain(*args), 3),
         library_ms=None,
-        bound=estimate_bound(torch, keys_s, rows, cands),
+        bound=est_bound,
+        old_count_bound_ms=old_bound,
         shape=f"{rows.numel()} pairs x {keys_s.shape[1]} probe blocks (stride 4, key_len 17), "
-              f"bank {tuple(bta.shape)}",
+              f"bank {tuple(bank.shape)}",
     )
     r = results["match_estimate"]
     print(f"match_estimate dispatch shape ({r['shape']}): max_abs_err {e}; kernel "
           f"{r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, bound {r['bound'][0]:.4f} ms "
-          f"({r['bound'][1]}; {card})")
+          f"({r['bound'][1]}; PR 8's count {old_bound:.4f} ms; {card})")
 
     # the torch-op programs at their shapes: bytes in and out over HBM
     n = 2 * spacked.shape[1]
@@ -1314,28 +1334,60 @@ def match_layer(np, torch, ck, cm, M, tk, cmod, Compressor, CompressorParams, cr
 
 
 # The device rANS coder (ops/device_rans.py): kernel checks of phase 3,
-# then phase 10. int32 operations (csrc/rans.cu's note): encode ~27 a
-# symbol (the runtime division's ~17, the remainder's 2, the renorm tests,
-# shifts and table reads), decode ~10 a symbol, 3 more a stream byte
-# (store or load, shift, count)
-RANS_ENCODE_OPS = 27
+# then phase 10. int32 operations (csrc/rans.cu's note): encode ~12 a
+# symbol in the reciprocal form (the symbol and its table entry, the two
+# renorm tests, the multiply-high and shift, the state update), decode ~10
+# a symbol, 3 more a stream byte (store or load, shift, count); the tables
+# 2 a symbol (its histogram count) and 16 a table entry a part (quantize
+# and reciprocal). PR 8 counted 27 a symbol for the encode with the
+# runtime division (~17 of them).
+RANS_ENCODE_OPS = 12
+RANS_ENCODE_OPS_PR8 = 27
 RANS_DECODE_OPS = 10
 RANS_BYTE_OPS = 3
+RANS_HIST_OPS = 2
+RANS_TABLE_OPS = 16 * 256
 
 
-def rans_bound(n_sym: int, n_stream: int, n_parts: int, n_lanes: int,
-               decode: bool) -> tuple[float, str]:
-    """rans_encode / rans_decode moving n_sym symbols and n_stream stream
-    bytes (each read or written once), 1 KB of frequencies a part and 8
-    bytes a lane (counts and states, or states and offsets)."""
-    ops = n_sym * (RANS_DECODE_OPS if decode else RANS_ENCODE_OPS) + RANS_BYTE_OPS * n_stream
-    return bound(n_sym + n_stream + 1024 * n_parts + 8 * n_lanes, ops)
+def rans_bounds(n_sym: int, n_coded: int, n_stream: int, n_blob: int, n_raw: int,
+                n_parts: int, n_lanes: int) -> dict:
+    """Bounds of a flush of n_parts parts and n_sym symbols (n_coded of them
+    in parts that are coded, n_raw in raw escapes), whose coded parts'
+    streams hold n_stream bytes and whose blobs n_blob bytes, each input
+    read once and each output written once: rans_tables reads the symbols
+    and writes 1 KB of frequencies and 2 KB of table a part; rans_encode
+    reads the symbols and the tables and writes 8 bytes a lane; rans_write
+    reads the coded symbols, their tables and 8 bytes a lane and the raw
+    payloads, and writes the blobs, coding the coded symbols; the flush as
+    one function reads the symbols and writes the blobs, coding every
+    symbol once. 'encode_pr8' is PR 8's count of its encode (27 operations
+    a symbol, its streams written, 1 KB a part)."""
+    tables = bound(n_sym + 3072 * n_parts, RANS_HIST_OPS * n_sym + RANS_TABLE_OPS * n_parts)
+    encode = bound(n_sym + 2048 * n_parts + 8 * n_lanes, RANS_ENCODE_OPS * n_sym)
+    write = bound(n_coded + n_raw + 3072 * n_parts + 8 * n_lanes + n_blob,
+                  RANS_ENCODE_OPS * n_coded + RANS_BYTE_OPS * (n_stream + n_raw))
+    flush = bound(n_sym + 32 * n_parts + n_blob,
+                  (RANS_HIST_OPS + RANS_ENCODE_OPS) * n_sym + RANS_TABLE_OPS * n_parts
+                  + RANS_BYTE_OPS * (n_stream + n_raw))
+    encode_pr8 = bound(n_sym + n_stream + 1024 * n_parts + 8 * n_lanes,
+                       RANS_ENCODE_OPS_PR8 * n_sym + RANS_BYTE_OPS * n_stream)
+    return dict(tables=tables, encode=encode, write=write, flush=flush, encode_pr8=encode_pr8)
+
+
+def rans_decode_bound(n_sym: int, n_stream: int, n_lanes: int) -> tuple[float, str]:
+    """rans_decode of one blob: its symbols written and its stream bytes
+    read once, 1 KB of frequencies and 8 bytes a lane (state and offset)."""
+    return bound(n_sym + n_stream + 1024 + 8 * n_lanes,
+                 RANS_DECODE_OPS * n_sym + RANS_BYTE_OPS * n_stream)
 
 
 def rans_cases(np) -> list:
     """Hard payloads: agc_tpu's test_entropy cases, every lane tier's edges,
     last rows partly inactive, rare symbols of frequency 1 (two-byte
-    renorms), a single symbol (no emission), a raw escape, and a fuzz."""
+    renorms), a single symbol (no emission), a raw escape, the
+    quantization's edges (every symbol once, a dominant symbol among 255
+    rare ones: many passes of -1), more 1-lane parts than a work row of
+    256, and a fuzz."""
     rng = np.random.default_rng(SEED + 11)
 
     def sym(alpha: int, n: int) -> bytes:
@@ -1349,26 +1401,44 @@ def rans_cases(np) -> list:
     skew = np.zeros(50_000, dtype=np.uint8)
     skew[rng.integers(0, len(skew), 12)] = rng.integers(1, 256, 12)
     cases.append(skew.tobytes())
+    cases.append(np.arange(256, dtype=np.uint8).tobytes())
+    dominant = np.full(3_000_000, 7, dtype=np.uint8)
+    dominant[rng.choice(len(dominant), 255, replace=False)] = np.delete(np.arange(256), 7)
+    cases.append(dominant.tobytes())
+    cases += [sym(int(rng.integers(1, 5)), int(rng.integers(1, 64))) for _ in range(300)]
     cases += [sym(int(rng.integers(1, 257)), int(rng.integers(1, 300_000))) for _ in range(10)]
     return cases
 
 
 def rans_kernels(np, torch, D, E, dev, results) -> None:
-    """Phase 3: rans_encode on every hard case in one launch (all five lane
-    tiers) and rans_decode on each blob, against their plain versions on
-    the card, the blobs against the host native coder."""
+    """Phase 3: rans_tables, rans_encode and rans_write on every hard case
+    in one flush (all five lane tiers), against their plain versions on
+    the card, the blobs against the host native coder; rans_decode on each
+    coded blob against its plain version and the input."""
     cases = rans_cases(np)
     live = [c for c in cases if c]
     prep = D._prepare(live)
-    args = D._upload(prep, dev)
+    data, meta, chunks, sel, work = D._upload(prep, dev)
     tiers = sorted(set(prep.meta[:, 2].tolist()))
     check(tiers == [1, 8, 64, 256, 1024], f"the rANS cases cover tiers {tiers}")
-    got = D.rans_encode(*args)
-    want = D.rans_encode_plain(*args)
-    enc_err = max(max_abs_err(torch, a, b) for a, b in zip(got, want))
+    freqs, enc = D.rans_tables(data, meta, chunks)
+    want_freqs, want_enc = D.rans_tables_plain(data, meta)
+    tab_err = max(max_abs_err(torch, freqs, want_freqs), max_abs_err(torch, enc, want_enc))
+    check(tab_err == 0, f"rans_tables disagrees with its plain version ({tab_err})")
+    host_freqs = np.stack([E.quantize_freqs(np.bincount(np.frombuffer(c, dtype=np.uint8),
+                                                        minlength=256)) for c in live])
+    check((freqs.cpu().numpy() == host_freqs.astype(np.int64)).all(),
+          "rans_tables' frequencies differ from quantize_freqs")
+    counts, states = D.rans_encode(data, meta, enc, sel, work)
+    p_counts, p_states = D.rans_encode_plain(data, meta, enc)
+    enc_err = max(max_abs_err(torch, counts, p_counts), max_abs_err(torch, states, p_states))
     check(enc_err == 0, f"rans_encode disagrees with its plain version ({enc_err})")
-    blobs = D._assemble(prep, *D._download(*got))
-    check(blobs == [E.compress(c) for c in live], "rans_encode's blobs differ from the host coder's")
+    out, blob_off = D.rans_write(data, meta, chunks, sel, work, freqs, enc, counts, states)
+    want_out = D.rans_write_plain(data, meta, freqs, enc, counts, states, blob_off)
+    wr_err = max_abs_err(torch, out, want_out)
+    check(wr_err == 0, f"rans_write disagrees with its plain version ({wr_err})")
+    blobs = D._slice(*D._download(out, blob_off))
+    check(blobs == [E.compress(c) for c in live], "the card's blobs differ from the host coder's")
     check(D.encode_batch(cases, dev) == [E.compress(c) for c in cases],
           "encode_batch differs from the host coder")
     dec_err, n_dec = 0, 0
@@ -1382,20 +1452,25 @@ def rans_kernels(np, torch, D, E, dev, results) -> None:
         check(e == 0 and out.cpu().numpy().tobytes() == c,
               f"rans_decode of a {len(c)}-byte blob disagrees ({e})")
         dec_err, n_dec = max(dec_err, e), n_dec + 1
-    print(f"rans_encode: {len(live)} parts of {len(prep.data)} bytes in one launch (lane tiers "
-          f"{tiers}), max_abs_err {enc_err}, every blob equal to the host coder's; rans_decode: "
-          f"{n_dec} blobs decoded to their inputs, max_abs_err {dec_err}")
-    results["rans_encode"] = dict(source="agc_tpu_torch/csrc/rans.cu",
-                                  replaces="agc_tpu/ops/device_rans.py:143",
-                                  max_abs_err=enc_err, library_ms=None)
-    results["rans_decode"] = dict(source="agc_tpu_torch/csrc/rans.cu",
-                                  replaces="agc_tpu/ops/device_rans.py:277",
-                                  max_abs_err=dec_err, library_ms=None)
+    n_raw = sum(bool(b[1] & E._RAW_FLAG) for b in blobs)
+    print(f"rans_tables / rans_encode / rans_write: {len(live)} parts of {len(prep.data)} bytes "
+          f"in one flush (lane tiers {tiers}, {len(prep.work)} encode blocks, {n_raw} raw "
+          f"escapes), max_abs_err {tab_err} / {enc_err} / {wr_err}, tables equal to "
+          f"quantize_freqs, every blob equal to the host coder's; rans_decode: {n_dec} blobs "
+          f"decoded to their inputs, max_abs_err {dec_err}")
+    for name, replaces, err in (
+            ("rans_tables", "agc_tpu/ops/device_rans.py:242", tab_err),
+            ("rans_encode", "agc_tpu/ops/device_rans.py:143", enc_err),
+            ("rans_write", "agc_tpu/ops/device_rans.py:266", wr_err),
+            ("rans_decode", "agc_tpu/ops/device_rans.py:277", dec_err)):
+        results[name] = dict(source="agc_tpu_torch/csrc/rans.cu", replaces=replaces,
+                             max_abs_err=err, library_ms=None)
 
 
 def rans_timing(np, torch, D, E, dev, results, card, payloads: list, blob: bytes) -> None:
-    """Both kernels at the shape of the largest flush: rans_encode over
-    its parts, rans_decode of the run's largest coded blob (raw escapes
+    """The kernels at the shape of the largest flush: rans_tables,
+    rans_encode and rans_write over its parts, the three as the flush
+    (code_flush), rans_decode of the run's largest coded blob (raw escapes
     are not decoded); the flush through encode_batch on the card and
     through the host native coder."""
     t0 = time.perf_counter()
@@ -1407,26 +1482,59 @@ def rans_timing(np, torch, D, E, dev, results, card, payloads: list, blob: bytes
     host_s = time.perf_counter() - t0
     live = [p for p in payloads if p]
     prep = D._prepare(live)
-    args = D._upload(prep, dev)
-    flat, counts, states = D.rans_encode(*args)
+    data, meta, chunks, sel, work = D._upload(prep, dev)
+    freqs, enc = D.rans_tables(data, meta, chunks)
+    counts, states = D.rans_encode(data, meta, enc, sel, work)
+    out, blob_off = D.rans_write(data, meta, chunks, sel, work, freqs, enc, counts, states)
+    _boff, stream_at, lane_cs = D.blob_offsets(meta, freqs, counts)
+    lens = meta[:, 1]
+    coded = stream_at >= 0
+    n_coded = int(lens[coded].sum())
+    n_raw = int(lens.sum()) - n_coded
+    part_bytes = lane_cs[meta[:, 3] + meta[:, 2]] - lane_cs[meta[:, 3]]
+    n_stream = int(part_bytes[coded].sum())
+    b = rans_bounds(int(lens.sum()), n_coded, n_stream, out.numel(), n_raw, len(live),
+                    counts.numel())
+    shape = (f"the largest flush: {len(live)} parts ({int(coded.sum())} coded), "
+             f"{int(lens.sum())} bytes, {counts.numel()} lanes, {out.numel()} blob bytes "
+             f"({n_raw} raw)")
+    runs = {
+        "rans_tables": (lambda: D.rans_tables(data, meta, chunks),
+                        lambda: D.rans_tables_plain(data, meta), b["tables"]),
+        "rans_encode": (lambda: D.rans_encode(data, meta, enc, sel, work),
+                        lambda: D.rans_encode_plain(data, meta, enc), b["encode"]),
+        "rans_write": (lambda: D.rans_write(data, meta, chunks, sel, work, freqs, enc, counts,
+                                            states),
+                       lambda: D.rans_write_plain(data, meta, freqs, enc, counts, states,
+                                                  blob_off), b["write"]),
+    }
+    for name, (fn, plain, bnd) in runs.items():
+        r = results[name]
+        r["ms"] = cuda_ms(torch, fn, 5)
+        r["plain_ms"] = cuda_ms(torch, plain, 1)
+        r["bound"] = bnd
+        r["shape"] = shape
     re = results["rans_encode"]
-    re["ms"] = cuda_ms(torch, lambda: D.rans_encode(*args), 5)
-    re["plain_ms"] = cuda_ms(torch, lambda: D.rans_encode_plain(*args), 1)
-    re["bound"] = rans_bound(len(prep.data), flat.numel(), len(live), counts.numel(), False)
-    re["shape"] = (f"the largest flush: {len(live)} parts, {len(prep.data)} bytes, "
-                   f"{counts.numel()} lanes")
+    re["flush_ms"] = cuda_ms(torch, lambda: D.code_flush(data, meta, chunks, sel, work), 5)
+    re["flush_bound_ms"] = b["flush"][0]
+    re["flush_bound_by"] = b["flush"][1]
+    re["old_count_bound_ms"] = b["encode_pr8"][0]
     dargs = D.blob_tensors(blob, dev)
     n = dargs[4]
     rd = results["rans_decode"]
     rd["ms"] = cuda_ms(torch, lambda: D.rans_decode(*dargs), 10)
     rd["plain_ms"] = cuda_ms(torch, lambda: D.rans_decode_plain(*dargs), 1)
-    rd["bound"] = rans_bound(n, dargs[0].numel(), 1, dargs[2].numel(), True)
+    rd["bound"] = rans_decode_bound(n, dargs[0].numel(), dargs[2].numel())
     rd["shape"] = f"the largest coded blob: {n} symbols, {dargs[2].numel()} lanes"
-    print(f"rans_encode over {re['shape']}: {re['ms']:.4f} ms (bound {re['bound'][0]:.4f} ms, "
-          f"{re['bound'][1]}), plain {re['plain_ms']:.4f} ms; rans_decode of {n} symbols: "
-          f"{rd['ms']:.4f} ms (bound {rd['bound'][0]:.4f} ms), plain {rd['plain_ms']:.4f} ms; "
-          f"the flush through encode_batch on the card {card_s:.4f} s, through the host "
-          f"native coder {host_s:.4f} s ({card})")
+    print(f"rANS over {shape}: " + "; ".join(
+        f"{name} {results[name]['ms']:.4f} ms (bound {results[name]['bound'][0]:.4f} ms, "
+        f"{results[name]['bound'][1]}), plain {results[name]['plain_ms']:.4f} ms"
+        for name in runs) + f"; the three as the flush (code_flush) {re['flush_ms']:.4f} ms "
+        f"(bound {re['flush_bound_ms']:.4f} ms, {re['flush_bound_by']}); rans_encode under PR "
+        f"8's count: bound {re['old_count_bound_ms']:.4f} ms; rans_decode of {n} symbols: "
+        f"{rd['ms']:.4f} ms (bound {rd['bound'][0]:.4f} ms), plain {rd['plain_ms']:.4f} ms; "
+        f"the flush through encode_batch on the card {card_s:.4f} s, through the host native "
+        f"coder {host_s:.4f} s ({card})")
 
 
 def rans_phase(np, torch, ck, D, E, CompressorParams, create_archive, append_archive,
@@ -1437,7 +1545,8 @@ def rans_phase(np, torch, ck, D, E, CompressorParams, create_archive, append_arc
     alpha = np.frombuffer(ALPHA, dtype=np.uint8)
     os.environ["AGC_TPU_RANS_DEVICE"] = "1"
     flushes = []
-    split = dict.fromkeys(("prepare", "upload", "kernel", "download", "assemble"), 0.0)
+    tables = []  # each flush's frequencies from rans_tables, kept on the card
+    split = dict.fromkeys(("prepare", "upload", "code", "download", "slice"), 0.0)
 
     def timed(key, fn):
         def call(*args, **kw):
@@ -1453,14 +1562,20 @@ def rans_phase(np, torch, ck, D, E, CompressorParams, create_archive, append_arc
         flushes.append((payloads, blobs))
         return blobs
 
-    stages = dict(_prepare="prepare", _upload="upload", rans_encode="kernel",
-                  _download="download", _assemble="assemble")
+    def keep_tables(data, meta, chunks):
+        got = real_tables(data, meta, chunks)
+        tables.append(got[0])
+        return got
+
+    stages = dict(_prepare="prepare", _upload="upload", code_flush="code",
+                  _download="download", _slice="slice")
     saved = {name: getattr(D, name) for name in stages}
-    real_parts = E.compress_parts
+    real_parts, real_tables = E.compress_parts, D.rans_tables
     try:
         for name, key in stages.items():
             setattr(D, name, timed(key, saved[name]))
         E.compress_parts = keeping
+        D.rans_tables = keep_tables
         out = os.path.join(tmp, "rans.agc")
         ck.reset_launches()
         torch.cuda.synchronize()
@@ -1474,8 +1589,11 @@ def rans_phase(np, torch, ck, D, E, CompressorParams, create_archive, append_arc
         for name, fn in saved.items():
             setattr(D, name, fn)
         E.compress_parts = real_parts
-    check(launches["rans_encode"] > 0, "the tpu-rans create never launched rans_encode")
-    results["rans_encode"]["launches"] = launches["rans_encode"]
+        D.rans_tables = real_tables
+    for name in ("rans_tables", "rans_encode", "rans_write"):
+        check(launches[name] > 0, f"the tpu-rans create never launched {name}")
+        results[name]["launches"] = launches[name]
+    check(len(tables) == len(flushes), "a flush did not go through rans_tables")
     total = sum(len(c) for cs in wseqs.values() for c in cs)
     n_parts = sum(len(p) for p, _ in flushes)
     n_bytes = sum(len(x) for p, _ in flushes for x in p)
@@ -1486,7 +1604,8 @@ def rans_phase(np, torch, ck, D, E, CompressorParams, create_archive, append_arc
           f"{len(flushes)} flushes, {n_parts} parts ({n_raw} raw escapes), {n_bytes} payload "
           f"bytes; largest flush {len(payloads)} parts, {sum(map(len, payloads))} bytes; "
           f"launches {launches}")
-    print("tpu-rans flush split (s, summed over flushes): " + json.dumps(
+    print("tpu-rans flush split (s, summed over flushes; code = rans_tables + rans_encode + "
+          "rans_write): " + json.dumps(
         {k: round(v, 4) for k, v in split.items()}) + f" = {sum(split.values()):.4f} s")
     print("tpu-rans stage timers (s): " + json.dumps(
         {n: round(t, 4) for n, t in sorted(timers.times.items(), key=lambda kv: -kv[1])}))
@@ -1499,6 +1618,20 @@ def rans_phase(np, torch, ck, D, E, CompressorParams, create_archive, append_arc
     print(f"tpu-rans blobs: {len(pairs)} equal to the host coder's: {same} "
           f"({time.perf_counter() - t0:.1f} s)")
     check(same, "a blob of the card's coder differs from the host coder's")
+    # every part's tables (raw escapes too, whose blobs do not show them)
+    # against quantize_freqs of its counts
+    t0 = time.perf_counter()
+    live = [p for ps, _ in flushes for p in ps if len(p)]
+    card_freqs = np.concatenate([t.cpu().numpy() for t in tables])
+    check(len(live) == len(card_freqs), "the kept tables do not cover every part")
+    with ThreadPoolExecutor(8) as pool:
+        same = all(pool.map(lambda pf: (E.quantize_freqs(np.bincount(
+            np.frombuffer(pf[0], dtype=np.uint8), minlength=256)) == pf[1]).all(),
+            zip(live, card_freqs)))
+    print(f"tpu-rans tables: {len(live)} parts' frequencies from rans_tables equal to "
+          f"quantize_freqs: {same} ({time.perf_counter() - t0:.1f} s)")
+    check(same, "the card's quantized tables differ from quantize_freqs")
+    del tables, card_freqs, live
     # up to 4096 coded blobs of the run back through decompress_device on
     # the card (raw escapes decode on the host)
     coded = [(p, b) for p, b in pairs if len(b) > 1 and not b[1] & E._RAW_FLAG]
@@ -1872,7 +2005,11 @@ def main() -> int:
         member_ms=cuda_ms(torch, lambda: ck.kmer_dir_rc(cpacked, k, idx), 10),
         member_plain_ms=cuda_ms(torch, lambda: ck.kmer_dir_rc_plain(cpacked, k, idx), 2),
         member_bound_ms=dir_rc_bound(cpacked.numel(),
-                                     int(ck.kmer_dir_rc(cpacked, k)[2].sum()))[0],
+                                     8 * idx[0].numel() + 4 * idx[1].numel())[0],
+        # PR 8's count: two 32-byte sectors a lookup of a valid position
+        member_bound_pr8_count_ms=bound(
+            37 * cpacked.numel() + 64 * int(ck.kmer_dir_rc(cpacked, k)[2].sum()),
+            40 * cpacked.numel())[0],
         shape=f"1 contig x {len(ref)} symbols, k=31; with a set: the {idx[0].numel()} "
               "singletons of its pool",
     )
@@ -2249,7 +2386,7 @@ def main() -> int:
          "bound_by": r["bound"][1], "library_ms": r["library_ms"],
          **{key: v for key, v in r.items()
             if key.startswith(("whole_genome", "chr_scale", "large_table", "member_",
-                               "adaptive_", "anchor_"))}}
+                               "adaptive_", "anchor_", "old_count_", "flush_"))}}
         for name, r in results.items()
     ]
     for name, r in results.items():

@@ -183,7 +183,7 @@ def test_refbank_duplicate_gids_one_row():
     queries = [M.MatchQuery(_mutate(rng, ref, 0.01), [(5, False)]) for _ in range(6)]
     M.estimate_batch(queries, bank, lambda g: ref.tobytes())
     m, _row = bank._row_of[5]
-    assert len(bank._built[m][2]) == 1
+    assert len(bank._built[m][1]) == 1
     for q in queries:
         assert int(q.ests[0]) == M.estimate_np(q.codes, ref, key_len)
 
@@ -341,7 +341,7 @@ def _hard_estimate_case(rng, key_len, stride, t, tile=256):
     b = M._pow4(4 * t, 2048)
     log2_h = (b // 4 * 2).bit_length() - 1
     refs = [_rand_seq(rng, int(rng.integers(2 * key_len, b))) for _ in range(n_refs)]
-    bta, btb = M.ref_slot_tables(torch.from_numpy(_packed(refs, b)), key_len, log2_h)
+    bank = cm.slot_bank(*M.ref_slot_tables(torch.from_numpy(_packed(refs, b)), key_len, log2_h))
     ref_keys = M._start_keys(torch.from_numpy(_packed(refs, b)), key_len)[:, ::4]
     pool = ref_keys[ref_keys != -1]
     first = ref_keys[0][ref_keys[0] != -1]  # keys of bank row 0
@@ -364,42 +364,124 @@ def _hard_estimate_case(rng, key_len, stride, t, tile=256):
     cands[-1] = n_refs - 1
     rows[:q] = torch.arange(q, dtype=torch.int32)
     cands[2] = cands[3] = 0
-    return keys, a_lo, a_hi, nrun, rows, cands, bta, btb
+    return keys, a_lo, a_hi, nrun, rows, cands, bank
+
+
+def _estimate_kernel(keys, a_lo, a_hi, nrun, rows, cands, bank, key_len, stride):
+    """agc_tpu's _estimate_kernel on the same inputs, its two slot tables
+    taken from the interleaved bank."""
+    return np.asarray(JM._estimate_kernel(
+        jnp.asarray(keys.numpy().view(np.uint64)), jnp.asarray(a_lo.numpy()),
+        jnp.asarray(a_hi.numpy()), jnp.asarray(nrun.numpy()), jnp.asarray(rows.numpy()),
+        jnp.asarray(cands.numpy()), jnp.asarray(bank[..., 0].numpy()),
+        jnp.asarray(bank[..., 1].numpy()), key_len, stride))
+
+
+def _scheduled(keys, a_lo, a_hi, nrun, rows, cands, bank, key_len, stride):
+    """match_estimate as the kernel schedules it: the pairs in a stable
+    sort by bank row, each estimate scattered back to its pair."""
+    order = torch.sort(cands, stable=True).indices
+    out = torch.empty(rows.numel(), dtype=torch.int64)
+    out[order] = cm.match_estimate(keys, a_lo, a_hi, nrun, rows[order], cands[order], bank,
+                                   key_len, stride)
+    return out
 
 
 @pytest.mark.parametrize("key_len,stride", [(16, 4), (17, 4), (17, 8), (17, 16), (16, 8)])
 def test_match_estimate_plain_matches_estimate_kernel(key_len, stride):
     rng = np.random.default_rng(key_len * 100 + stride)
     args = _hard_estimate_case(rng, key_len, stride, t=600)
-    keys, a_lo, a_hi, nrun, rows, cands, bta, btb = args
+    keys, a_lo, a_hi, nrun, rows, cands, bank = args
     got = cm.match_estimate(*args, key_len, stride)  # CPU tensors: the plain version
     np.testing.assert_array_equal(got.numpy(), cm.match_estimate_plain(*args, key_len, stride))
-    want = JM._estimate_kernel(
-        jnp.asarray(keys.numpy().view(np.uint64)), jnp.asarray(a_lo.numpy()),
-        jnp.asarray(a_hi.numpy()), jnp.asarray(nrun.numpy()), jnp.asarray(rows.numpy()),
-        jnp.asarray(cands.numpy()), jnp.asarray(bta.numpy()), jnp.asarray(btb.numpy()),
-        key_len, stride,
-    )
-    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    np.testing.assert_array_equal(got.numpy(), _estimate_kernel(*args, key_len, stride))
+    np.testing.assert_array_equal(_scheduled(*args, key_len, stride).numpy(), got.numpy())
     # an all-invalid row: every ACGT symbol is a literal, no run
     assert (got[rows == 1] == a_lo[1].sum() + a_hi[1].sum() + nrun[1]).all()
     # a one-row bank
-    one = cm.match_estimate(keys, a_lo, a_hi, nrun, rows, torch.zeros_like(cands),
-                            bta[:1].contiguous(), btb[:1].contiguous(), key_len, stride)
-    np.testing.assert_array_equal(
-        one.numpy(), np.asarray(JM._estimate_kernel(
-            jnp.asarray(keys.numpy().view(np.uint64)), jnp.asarray(a_lo.numpy()),
-            jnp.asarray(a_hi.numpy()), jnp.asarray(nrun.numpy()), jnp.asarray(rows.numpy()),
-            jnp.zeros(len(rows), jnp.int32), jnp.asarray(bta[:1].numpy()),
-            jnp.asarray(btb[:1].numpy()), key_len, stride)))
+    one = (keys, a_lo, a_hi, nrun, rows, torch.zeros_like(cands), bank[:1].contiguous())
+    np.testing.assert_array_equal(cm.match_estimate(*one, key_len, stride).numpy(),
+                                  _estimate_kernel(*one, key_len, stride))
+
+
+@pytest.mark.parametrize("case", ["repeats out of order", "one candidate", "one-row bank"])
+@pytest.mark.parametrize("key_len,stride", [(17, 4), (16, 8)])
+def test_match_estimate_schedule_matches_estimate_kernel(case, key_len, stride):
+    """Pair lists that the kernel's bank-row schedule reorders: candidates
+    that repeat out of order (runs broken up, the last row first), one
+    candidate for every pair, and a one-row bank; scattered back, the
+    estimates equal agc_tpu's _estimate_kernel pair for pair."""
+    rng = np.random.default_rng(key_len * 10 + stride + len(case))
+    keys, a_lo, a_hi, nrun, rows, cands, bank = _hard_estimate_case(rng, key_len, stride, t=700)
+    n_refs = bank.shape[0]
+    p = 96
+    rows = torch.from_numpy(rng.integers(0, keys.shape[0], p).astype(np.int32))
+    if case == "repeats out of order":
+        cands = torch.from_numpy(np.tile([2, 0, 1, 0, 2, 2, 1], -(-p // 7))[:p].astype(np.int32))
+        cands[0] = n_refs - 1
+    elif case == "one candidate":
+        cands = torch.full((p,), 1, dtype=torch.int32)
+    else:
+        cands = torch.zeros(p, dtype=torch.int32)
+        bank = bank[1:2].contiguous()
+    args = (keys, a_lo, a_hi, nrun, rows, cands, bank)
+    want = _estimate_kernel(*args, key_len, stride)
+    np.testing.assert_array_equal(_scheduled(*args, key_len, stride).numpy(), want)
+    np.testing.assert_array_equal(cm.match_estimate(*args, key_len, stride).numpy(), want)
 
 
 def test_match_estimate_rejects_bad_inputs():
     rng = np.random.default_rng(3)
-    keys, a_lo, a_hi, nrun, rows, cands, bta, btb = _hard_estimate_case(rng, 17, 4, t=300)
+    keys, a_lo, a_hi, nrun, rows, cands, bank = _hard_estimate_case(rng, 17, 4, t=300)
     with pytest.raises(ValueError, match="power of two"):
-        cm.match_estimate(keys, a_lo, a_hi, nrun, rows, cands, bta[:, :-1], btb[:, :-1], 17, 4)
+        cm.match_estimate(keys, a_lo, a_hi, nrun, rows, cands, bank[:, :-1], 17, 4)
     with pytest.raises(ValueError, match="int32"):
-        cm.match_estimate(keys, a_lo, a_hi, nrun, rows.long(), cands, bta, btb, 17, 4)
+        cm.match_estimate(keys, a_lo, a_hi, nrun, rows.long(), cands, bank, 17, 4)
     with pytest.raises(ValueError, match="below"):
-        cm.match_estimate(keys, a_lo, a_hi, nrun, rows, cands, bta, btb, 17, 0)
+        cm.match_estimate(keys, a_lo, a_hi, nrun, rows, cands, bank, 17, 0)
+    with pytest.raises(ValueError, match="H, 2"):
+        cm.match_estimate(keys, a_lo, a_hi, nrun, rows, cands, bank[..., 0], 17, 4)
+
+
+def estimate_kernel_model(keys, a_lo, a_hi, nrun, rows, cands, bank, key_len, stride):
+    """match_estimate as csrc/match_estimate.cu computes it, block after
+    block: coverage from the index of the last hit alone (a hit at u covers
+    blocks u .. u + q0 - 1 from offset r on, and u + q0 below it), runs
+    from the latest run start, no prefix counts."""
+    q0, r = divmod(key_len, stride)
+    h = bank.shape[1]
+    log2_h = h.bit_length() - 1
+    out = []
+    for row, cand in zip(rows.tolist(), cands.tolist()):
+        q = keys[row]
+        ok = q != -1
+        bkt = torch.where(ok, cm.bucket_of(q, log2_h), 0)
+        ea, eb = bank[cand, bkt, 0], bank[cand, bkt, 1]
+        fp = cm.fp_of(q)
+        ha = ok & (ea != cm._SLOT_SENT) & ((ea >> cm._POS_BITS) == fp)
+        hb = ok & (eb >= 0) & ((eb >> cm._POS_BITS) == fp)
+        rpos = torch.where(ha, ea & cm._POS_MASK, torch.where(hb, eb & cm._POS_MASK, 0))
+        hits, rpos = (ha | hb).tolist(), rpos.tolist()
+        lo, hi = a_lo[row].tolist(), a_hi[row].tolist()
+        acc, last, prev_diag = int(nrun[row]), -(1 << 30), 0
+        for t in range(len(hits)):
+            prev = last
+            last = t if hits[t] else prev
+            cov_hi, cov_lo = last > t - q0, last >= t - q0
+            acc += (0 if cov_lo else lo[t]) + (0 if cov_hi else hi[t])
+            if (cov_lo if r else cov_hi) and not prev > t - 1 - q0:
+                diag = rpos[t] - t * stride
+                acc += len(str(abs(diag - prev_diag))) + 4
+                prev_diag = diag
+        out.append(acc)
+    return torch.tensor(out, dtype=torch.int64)
+
+
+@pytest.mark.parametrize("key_len,stride", [(16, 4), (17, 4), (17, 16)])
+def test_estimate_kernel_model_equals_plain(key_len, stride):
+    """The kernel's last-hit formulation of coverage and run starts equals
+    the plain version's prefix counts on the hard cases."""
+    rng = np.random.default_rng(key_len + 7 * stride)
+    args = _hard_estimate_case(rng, key_len, stride, t=1100, tile=1024)
+    np.testing.assert_array_equal(estimate_kernel_model(*args, key_len, stride).numpy(),
+                                  cm.match_estimate_plain(*args, key_len, stride).numpy())

@@ -3,10 +3,14 @@ agc_tpu's (agc_tpu/ops/device_rans.py, JAX on the CPU) and the host coder,
 with device='cpu': the kernels' plain versions. Blobs and archives are
 bytes, so the tolerance is 0 everywhere.
 
-Also held here: a torch model of the rans_encode kernel's ragged indexing
-(part and lane bases, backwards writes into 2 * ceil(n / L)-byte regions,
-compaction by a prefix sum) against agc_tpu's _pack_part_streams, and the
-port's numpy blob assembly against entropy.assemble_blob.
+Also held here: the tables' closed form (quantize_plain) against both
+packages' quantize_freqs, the encoder's reciprocal step against the
+division, a model of the rans_encode and rans_write kernels' ragged
+indexing, reciprocal arithmetic and in-place writes (part and lane bases,
+bytes backwards, whole aligned words inside a lane's stream, single bytes
+at its ends) against agc_tpu's _pack_part_streams, the encode's schedule
+and the blobs' layout, and the blob writer's plain version against
+entropy.assemble_blob.
 """
 
 import random
@@ -14,6 +18,8 @@ import random
 import numpy as np
 import pytest
 import torch
+from hypothesis import given, settings
+from hypothesis import strategies as st
 
 from agc_tpu.core import entropy as TE
 from agc_tpu.core.compressor import CompressorParams as TpuParams
@@ -157,69 +163,85 @@ def _tpu_lane_streams(payload: bytes):
     return flat, lane_lens, np.asarray(x)[0]
 
 
-def kernel_model(data, meta, freqs):
-    """rans_encode as csrc/rans.cu indexes it, in torch: per part, each
-    lane walks its steps from the last down, reads data[off + t * L +
-    lane] and writes each emitted byte backwards from the end of its region
-    (base + (lane + 1) * cap, cap = 2 * ceil(n / L)); then the compaction
-    copies each lane's last counts[lane] region bytes to the prefix sum of
-    the counts."""
+def kernel_model(data, meta, enc, shift=3):
+    """rans_encode and rans_write's streams as csrc/rans.cu computes them,
+    lane by lane in Python integers. Each lane walks its steps from the
+    last down, reads data[off + t * L + lane] and steps its state by the
+    reciprocal form of enc (x + bias + q * (4096 - f), q the top 32 bits
+    of x * rcp shifted right): a first run gives its byte count and final
+    state. The second writes its bytes backwards from the top of its
+    stream's place, here shift + the counts' prefix sum: the 8-byte words
+    wholly inside that place whole (aligned, each new byte at the bottom of
+    a little-endian word), the bytes of the words shared with neighbours
+    one by one. Returns (the lanes' streams read back, counts, states)."""
     rows = meta.tolist()
-    _off, n, lanes, lane0, base = rows[-1]
-    region = torch.zeros(base + lanes * 2 * -(-n // lanes), dtype=torch.uint8)
-    counts = torch.zeros(lane0 + lanes, dtype=torch.int64)
-    states = torch.zeros(lane0 + lanes, dtype=torch.int64)
-    for p, (off, n, lanes, lane0, base) in enumerate(rows):
-        f_tab = freqs[p].long()
-        c_tab = torch.cumsum(f_tab, 0) - f_tab
-        cap = 2 * -(-n // lanes)
-        lane = torch.arange(lanes)
-        steps = torch.where(lane < n, (n - lane + lanes - 1) // lanes, 0)
-        end = base + (lane + 1) * cap
-        x = torch.full((lanes,), E.RANS_L, dtype=torch.int64)
-        cnt = torch.zeros(lanes, dtype=torch.int64)
-        for t in range(int(steps.max()) - 1, -1, -1):
-            act = t < steps
-            s = data[torch.where(act, off + t * lanes + lane, 0)].long()
-            f = torch.where(act, f_tab[s], 1)
-            x_max = ((E.RANS_L >> E.PROB_BITS) << 8) * f
+    sym = data.numpy()
+    m64 = (1 << 64) - 1
+
+    def run(p, lane, sink=None):
+        off, n, lanes, _lane0 = rows[p]
+        rcp = (enc[p, :, 0].long() & 0xFFFFFFFF).tolist()
+        word = enc[p, :, 1].long().tolist()
+        steps = (n - lane + lanes - 1) // lanes if lane < n else 0
+        x, cnt, buf = E.RANS_L, 0, 0
+        for t in range(steps - 1, -1, -1):
+            s = int(sym[off + t * lanes + lane])
+            f = word[s] >> 17
             for _ in range(2):
-                emit = act & (x >= x_max)
-                region[(end - 1 - cnt)[emit]] = (x[emit] & 0xFF).to(torch.uint8)
-                cnt = cnt + emit.long()
-                x = torch.where(emit, x >> 8, x)
-            x = torch.where(act, ((x // f) << E.PROB_BITS) + x % f + c_tab[s], x)
-        counts[lane0 + lane] = cnt
-        states[lane0 + lane] = x
-    lane_out = torch.cumsum(counts, 0) - counts
-    out = torch.zeros(int(counts.sum()), dtype=torch.uint8)
-    for off, n, lanes, lane0, base in rows:
-        cap = 2 * -(-n // lanes)
+                if x >= f << 19:
+                    cnt += 1
+                    if sink is not None:
+                        out, lo, top = sink
+                        at = top - cnt
+                        if at >= top // 8 * 8 or at < (lo + 7) // 8 * 8:
+                            out[at] = x & 0xFF
+                        else:
+                            buf = ((buf << 8) | (x & 0xFF)) & m64
+                            if at % 8 == 0:
+                                assert lo <= at and at + 8 <= top
+                                out[at : at + 8] = buf.to_bytes(8, "little")
+                    x >>= 8
+            q = ((x * rcp[s]) >> 32) >> ((word[s] >> 13) & 15)
+            x = (x + (word[s] & 0x1FFF) + q * (E.PROB_SCALE - f)) & 0xFFFFFFFF
+        return cnt, x
+
+    counts, states = [], []
+    for p, (_off, _n, lanes, _lane0) in enumerate(rows):
         for lane in range(lanes):
-            c, dst = int(counts[lane0 + lane]), int(lane_out[lane0 + lane])
-            src = base + (lane + 1) * cap - c
-            out[dst : dst + c] = region[src : src + c]
-    return out, counts, states
+            cnt, x = run(p, lane)
+            counts.append(cnt)
+            states.append(x)
+    cs = np.concatenate([[0], np.cumsum(counts)]) + shift
+    out = bytearray(int(cs[-1]) + 16)
+    for p, (_off, _n, lanes, lane0) in enumerate(rows):
+        for lane in range(lanes):
+            run(p, lane, (out, int(cs[lane0 + lane]), int(cs[lane0 + lane + 1])))
+    flat = torch.frombuffer(out[shift : int(cs[-1])] or bytearray(1), dtype=torch.uint8)
+    return (flat[: int(cs[-1]) - shift], torch.tensor(counts, dtype=torch.int64),
+            torch.tensor(states, dtype=torch.int64))
 
 
 @pytest.mark.parametrize("tier", TIERS)
 def test_kernel_layout_model_equals_pack_part_streams(tier):
-    """A flush of parts of this tier beside parts of other tiers (so part,
-    lane and region bases are not trivial), one with a partly inactive
-    last row: the kernel model's lane streams, lane lengths and states
-    equal agc_tpu's, and its outputs equal rans_encode_plain's."""
+    """A flush of parts of this tier beside parts of other tiers (so part
+    and lane bases are not trivial), one with a partly inactive last row,
+    written from an offset off the 8-byte grid: the kernel model's lane
+    streams, lane lengths and states equal agc_tpu's, and rans_encode's
+    plain version's."""
     rng = np.random.default_rng(tier)
     lo = {1: 1, 8: 64, 64: 1024, 256: 8192, 1024: 65536}[tier]
     lens = [lo + 3, 700, lo * 2 - 1 if tier > 1 else 63, 9000, lo + tier // 2 + 1]
     parts = [bytes(rng.integers(0, 6, n, dtype=np.uint8)) for n in lens]
     prep = D._prepare(parts)
-    args = [torch.from_numpy(a) for a in (prep.data, prep.meta, prep.freqs)]
-    flat, counts, states = kernel_model(*args)
-    plain = D.rans_encode_plain(*args)
-    assert torch.equal(flat, plain[0])
-    assert torch.equal(counts.int(), plain[1]) and torch.equal(states.int(), plain[2])
+    data, meta, chunks, sel, work = (torch.from_numpy(a) for a in
+                                     (prep.data, prep.meta, prep.chunks, prep.sel, prep.work))
+    _freqs, enc = D.rans_tables(data, meta, chunks)
+    flat, counts, states = kernel_model(data, meta, enc, shift=tier % 8 + 1)
+    p_counts, p_states = D.rans_encode(data, meta, enc, sel, work)
+    assert torch.equal(flat, D._encode_plain(data, meta, enc)[0])
+    assert torch.equal(counts.int(), p_counts) and torch.equal(states.int(), p_states)
     lane_out = np.cumsum(counts.numpy()) - counts.numpy()
-    for (_off, n, lanes, lane0, _base), part in zip(prep.meta.tolist(), parts):
+    for (_off, n, lanes, lane0), part in zip(prep.meta.tolist(), parts):
         if lanes != tier:
             continue
         want, want_lens, want_x = _tpu_lane_streams(part)
@@ -232,24 +254,29 @@ def test_kernel_layout_model_equals_pack_part_streams(tier):
 
 @pytest.mark.parametrize("kind", [*TIERS, "raw"])
 def test_assemble_equals_assemble_blob(kind):
-    """The port's vectorised blob assembly against entropy.assemble_blob on
-    the host spec's lane streams."""
+    """The blob writer's plain version against entropy.assemble_blob on the
+    host spec's lane streams, beside other parts of the flush."""
     rng = np.random.default_rng(31)
     if kind == "raw":
         parts = [bytes(rng.integers(0, 256, 5000, dtype=np.uint8))]
     else:
         lo = {1: 5, 8: 200, 64: 3000, 256: 20_000, 1024: 70_000}[kind]
         parts = [bytes(rng.integers(0, 4, lo, dtype=np.uint8)), _skewed(lo + 7)]
+    parts.append(bytes(rng.integers(0, 3, 100, dtype=np.uint8)))
     prep = D._prepare(parts)
-    streams, states, want = [], [], []
-    for part, freqs in zip(parts, prep.freqs):
-        s, x = E._encode_lanes(np.frombuffer(part, dtype=np.uint8), freqs.astype(np.uint32))
-        streams += s
+    data, meta, chunks, sel, work = (torch.from_numpy(a) for a in
+                                     (prep.data, prep.meta, prep.chunks, prep.sel, prep.work))
+    freqs, enc = D.rans_tables(data, meta, chunks)
+    counts, states, want = [], [], []
+    for part, f in zip(parts, freqs.numpy()):
+        s, x = E._encode_lanes(np.frombuffer(part, dtype=np.uint8), f.astype(np.uint32))
+        counts += [len(x) for x in s]
         states.append(x)
-        want.append(E.assemble_blob(part, freqs, s, x))
-    flat = np.frombuffer(b"".join(streams), dtype=np.uint8)
-    counts = np.array([len(s) for s in streams], dtype=np.int32)
-    got = D._assemble(prep, flat, counts, np.concatenate(states).astype(np.int32))
+        want.append(E.assemble_blob(part, f, s, x))
+    counts = torch.tensor(counts, dtype=torch.int32)
+    states = torch.from_numpy(np.concatenate(states).astype(np.int64)).to(torch.int32)
+    out, blob_off = D.rans_write(data, meta, chunks, sel, work, freqs, enc, counts, states)
+    got = D._slice(out.numpy(), blob_off.tolist())
     assert got == want
     # the raw escape where rANS does not pay: always for random bytes,
     # never for 4 symbols once the tables' overhead is amortised
@@ -259,11 +286,11 @@ def test_assemble_equals_assemble_blob(kind):
 
 def test_varints_equal_put_varint():
     vals = np.array([0, 1, 127, 128, 300, 16383, 16384, 4096, 1 << 35, (1 << 63) - 1])
-    got, nbytes = D.varints(vals)
+    got, nbytes = D.varints(torch.from_numpy(vals))
     want = bytearray()
     for v in vals.tolist():
         E._put_varint(want, v)
-    assert got.tobytes() == bytes(want)
+    assert got.numpy().tobytes() == bytes(want)
     assert nbytes.tolist() == [E._varint_len(v) for v in vals.tolist()]
 
 
@@ -379,3 +406,178 @@ def test_device_coder_error_surfaces(tmp_path, rans_forced, monkeypatch):
         create_archive(str(out), [p for _, p in files],
                        CompressorParams(segment_size=3000, profile="tpu-rans"), device="cpu")
     assert not out.exists()
+
+
+def _quantize_both(counts: np.ndarray) -> np.ndarray:
+    """quantize_plain of one row of counts, checked against both packages'
+    quantize_freqs."""
+    got = D.quantize_plain(torch.from_numpy(counts.astype(np.int64))[None])[0].numpy()
+    assert (got == E.quantize_freqs(counts).astype(np.int64)).all()
+    assert (got == TE.quantize_freqs(counts).astype(np.int64)).all()
+    assert got.sum() == E.PROB_SCALE and ((got > 0) == (counts > 0)).all()
+    return got
+
+
+def _named_counts(case: str) -> np.ndarray:
+    c = np.zeros(256, dtype=np.int64)
+    if case == "one symbol":
+        c[200] = 12345
+    elif case == "every symbol once":
+        c[:] = 1
+    elif case == "dominant among 255 rare":  # diff < 0 over many passes
+        c[:] = 1
+        c[7] = 10**9
+    elif case == "dominant among rare, rem ties":
+        c[::2] = 3
+        c[1] = 5 * 10**6
+    elif case == "total below 4096":
+        c[[0, 3, 9, 255]] = [1000, 7, 1, 33]
+    elif case == "total above 4096":
+        c[[0, 1, 2, 3, 4]] = [100_003, 99_999, 7, 4096, 1]
+    return c
+
+
+@pytest.mark.parametrize("case", ["one symbol", "every symbol once", "dominant among 255 rare",
+                                  "dominant among rare, rem ties", "total below 4096",
+                                  "total above 4096"])
+def test_quantize_plain_equals_quantize_freqs(case):
+    c = _named_counts(case)
+    got = _quantize_both(c)
+    if case == "dominant among 255 rare":
+        assert (got[c == 1] == 1).all() and got[7] == E.PROB_SCALE - 255
+
+
+@settings(max_examples=300, deadline=None)
+@given(st.lists(st.integers(0, 5000), min_size=256, max_size=256),
+       st.sampled_from([1, 7, 10**4, 10**7]))
+def test_quantize_plain_fuzz(counts, scale):
+    c = np.asarray(counts, dtype=np.int64)
+    c = np.where(c > 4000, c * scale, np.where(c > 3000, 0, c))
+    if c.sum() == 0:
+        c[0] = 1
+    _quantize_both(c)
+
+
+def test_quantize_plain_rows_at_once():
+    """Rows of every kind in one call: the closed form is per row."""
+    cases = ["one symbol", "every symbol once", "dominant among 255 rare",
+             "dominant among rare, rem ties", "total below 4096", "total above 4096"]
+    rows = np.stack([_named_counts(c) for c in cases])
+    got = D.quantize_plain(torch.from_numpy(rows)).numpy()
+    for row, c in zip(got, rows):
+        assert (row == E.quantize_freqs(c).astype(np.int64)).all()
+
+
+def test_reciprocal_step_is_exact():
+    """The encoder's step x + bias + q * (4096 - f), q = (x * rcp) >> 32 >>
+    shift, equals ((x // f) << 12) + x % f + start for every f of the
+    12-bit scale and states from 1 (a state is never 0: the renorm leaves
+    x >= f << 11) to x_max - 1 = (f << 19) - 1, the edges included."""
+    f = np.arange(1, E.PROB_SCALE + 1, dtype=np.int64)
+    start = (E.PROB_SCALE - f) // 2
+    freqs = np.zeros((len(f), 256), dtype=np.int32)
+    freqs[:, 0], freqs[:, 1], freqs[:, 2] = start, f, E.PROB_SCALE - f - start
+    enc = D.enc_table_plain(torch.from_numpy(freqs))[:, 1].numpy().astype(np.int64)
+    rcp, word = enc[:, 0] & 0xFFFFFFFF, enc[:, 1]
+    assert ((word >> 17) == f).all()
+    rng = np.random.default_rng(4)
+    x_max = f << 19
+    for x in [np.ones_like(f), f << 11, x_max - 1, x_max - f, x_max // 2 + 1,
+              *[rng.integers(1, x_max) for _ in range(64)]]:
+        q = ((x.astype(np.uint64) * rcp.astype(np.uint64)) >> np.uint64(32)).astype(np.int64)
+        q >>= (word >> 13) & 15
+        got = x + (word & 0x1FFF) + q * (E.PROB_SCALE - f)
+        assert (got == ((x // f) << 12) + x % f + start).all()
+
+
+def test_tables_plain_equals_quantize_freqs_on_a_flush():
+    """rans_tables' plain version over a flush of every tier: each part's
+    frequencies are quantize_freqs of its bincount, its enc table that of
+    its frequencies."""
+    parts = _cases()[1:] + _fuzz(6, seed=3) + [_skewed()]
+    prep = D._prepare(parts)
+    freqs, enc = D.rans_tables(*(torch.from_numpy(a) for a in (prep.data, prep.meta, prep.chunks)))
+    for part, row in zip(parts, freqs.numpy()):
+        want = E.quantize_freqs(np.bincount(np.frombuffer(part, dtype=np.uint8), minlength=256))
+        assert (row == want.astype(np.int64)).all()
+    assert torch.equal(enc, D.enc_table_plain(freqs))
+
+
+def test_encode_batch_equals_compress_parts():
+    """encode_batch(device="cpu") on a mixed-tier flush (every tier, raw
+    escapes, empty parts, 1-lane parts past a work row of 256) equals
+    agc_tpu's compress_parts, the host coder there."""
+    rng = np.random.default_rng(41)
+    payloads = [bytes(rng.integers(0, 4, int(n), dtype=np.uint8))
+                for n in rng.integers(1, 64, 300)]
+    payloads += [b"", bytes(rng.integers(0, 256, 3000, dtype=np.uint8)), _skewed(9000)]
+    payloads += [bytes(rng.integers(0, 9, n, dtype=np.uint8))
+                 for n in (70, 1100, 20_000, 66_000, 100)]
+    payloads += [bytes(rng.integers(0, 4, 200, dtype=np.uint8)) for _ in range(11)]
+    assert {E.lanes_for(len(p)) for p in payloads if p} == set(TIERS)
+    assert D.encode_batch(payloads, device="cpu") == TE.compress_parts(payloads)
+
+
+def test_prepare_schedule_covers_every_part_once():
+    """_prepare's chunks cover every byte of every part once, 64 KB a
+    chunk; its work rows give every lane of every large part to one block
+    (256 lanes a block), every 8- or 64-lane part to one warp, every 1-lane
+    part to one thread."""
+    rng = np.random.default_rng(12)
+    lens = [1, 63, 64, 1023, 1024, 8191, 8192, 65535, 65536, 200_000, 131_073]
+    lens += rng.integers(1, 64, 600).tolist() + rng.integers(64, 1024, 20).tolist()
+    prep = D._prepare([bytes(n) for n in lens])
+    meta = prep.meta
+    assert len(prep.data) == sum(lens)
+    assert (meta[:, 0] == np.cumsum(lens) - lens).all()
+    assert (meta[:, 3] == np.cumsum(meta[:, 2]) - meta[:, 2]).all()
+    covered = np.zeros(len(lens), dtype=np.int64)
+    for p, start in prep.chunks.tolist():
+        assert start % D._CHUNK == 0 and start < lens[p]
+        covered[p] += min(D._CHUNK, lens[p] - start)
+    assert covered.tolist() == lens
+    lanes_done = np.zeros(len(lens), dtype=np.int64)
+    for kind, first, arg in prep.work.tolist():
+        if kind == D._BLOCK_PART:
+            p = prep.sel[first]
+            assert meta[p, 2] >= 256 and arg % 256 == 0 and arg < meta[p, 2]
+            lanes_done[p] += 256
+        else:
+            per = D._WARP_PARTS if kind == D._WARP_PART else D._LANE_PARTS
+            assert 1 <= arg <= per
+            for p in prep.sel[first : first + arg]:
+                assert (meta[p, 2] in (8, 64)) == (kind == D._WARP_PART)
+                lanes_done[p] += meta[p, 2]
+    assert (lanes_done == meta[:, 2]).all()
+    assert sorted(prep.sel.tolist()) == list(range(len(lens)))
+
+
+def test_blob_offsets_place_every_stream():
+    """blob_offsets' layout, what rans_write's kernel writes by: each coded
+    part's lane l writes its stream at stream_at + the prefix sum of the
+    counts before it in its part; raw escapes have stream_at -1 and the
+    raw size."""
+    rng = np.random.default_rng(13)
+    parts = [bytes(rng.integers(0, 4, n, dtype=np.uint8)) for n in (5, 300, 3000, 70_000)]
+    parts.append(bytes(rng.integers(0, 256, 4000, dtype=np.uint8)))  # a raw escape
+    prep = D._prepare(parts)
+    data, meta, chunks, sel, work = (torch.from_numpy(a) for a in
+                                     (prep.data, prep.meta, prep.chunks, prep.sel, prep.work))
+    freqs, enc = D.rans_tables(data, meta, chunks)
+    counts, states = D.rans_encode(data, meta, enc, sel, work)
+    out, blob_off = D.rans_write(data, meta, chunks, sel, work, freqs, enc, counts, states)
+    boff, stream_at, lane_cs = D.blob_offsets(meta, freqs, counts)
+    assert torch.equal(boff, blob_off)
+    flat = D._encode_plain(data, meta, enc)[0]
+    for p, (_off, n, lanes, lane0) in enumerate(prep.meta.tolist()):
+        if stream_at[p] < 0:
+            assert blob_off[p + 1] - blob_off[p] == 2 + E._varint_len(n) + n
+            assert out[blob_off[p] + 1] == E._RAW_FLAG
+            continue
+        for lane in range(lanes):
+            a, b = int(lane_cs[lane0 + lane]), int(lane_cs[lane0 + lane + 1])
+            at = int(stream_at[p]) + a - int(lane_cs[lane0])
+            assert torch.equal(out[at : at + b - a], flat[a:b])
+        assert int(stream_at[p]) + int(lane_cs[lane0 + lanes] - lane_cs[lane0]) == blob_off[p + 1]
+    # short parts and random bytes are raw escapes; the longer 4-symbol parts code
+    assert (stream_at < 0).tolist() == [True, True, False, False, True]
