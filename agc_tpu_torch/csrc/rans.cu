@@ -1,10 +1,13 @@
 // Lane-interleaved order-0 rANS, the coder of the tpu-rans archive profile
 // (agc_tpu_torch/core/entropy.py defines the bitstream). A store flush is
-// coded by three launches: rans_tables (each part's symbol counts and
+// coded by four kernels: rans_tables (each part's symbol counts and
 // quantized frequencies, and the encoder's per-symbol reciprocals),
-// rans_encode (every lane of every part: its byte count and final state)
-// and rans_write (each part's whole blob, or its raw escape, at an offset
-// from a prefix sum of the blob sizes); rans_decode decodes one blob.
+// rans_encode (every lane of every part: its byte count and final state),
+// rans_layout (each part's blob size, raw or coded, and the blobs' and the
+// lanes' offsets, by one device-wide scan) and rans_write (each part's
+// whole blob, or its raw escape, at its offset); rans_decode decodes one
+// blob. Nothing of a flush goes back to the host between them: the output
+// buffer is sized from the flush's shapes, which bound its blobs.
 //
 // Replaces agc_tpu's XLA programs _encode_fn / _encode_batch_fn
 // (agc_tpu/ops/device_rans.py:55-84, :142-186), reverse lax.scans over
@@ -29,17 +32,37 @@
 // stores nothing; rans_write runs the coded parts' lanes again, each
 // writing its stream backwards in place in its blob, whole 8-byte words
 // where the words are its own. A part that is stored raw (random bytes:
-// the reference parts of a whole-genome create) is never run twice.
+// the reference parts of a whole-genome create) is never run twice, and
+// its payload is copied as 16-byte words: aligned loads of the source,
+// shifted to the destination's alignment across two words, aligned stores;
+// only the ragged ends go byte by byte. A flush of raw escapes is bound by
+// its bytes, read once and written once.
 //
 // The parts' sizes run from 1 byte to megabytes, so no kernel gives a large
 // part to one block: rans_tables reads every 64 KB chunk of a part in a
 // block of its own into a shared-memory histogram with a private column a
-// lane (conflict-free atomics), and quantizes a part a block; the state
-// machine gives a block 256 lanes of a large part, a warp an 8- or 64-lane
-// part, a thread a 1-lane part, 256 to a block; rans_write writes a part's
-// head a block and a raw payload a 64 KB chunk a block. rans_decode has no
-// division: ~10 operations a symbol, a slot table in shared memory, one
-// thread a lane.
+// lane (conflict-free atomics), and the part's counts go to scratch (added
+// up over a larger part's chunks); a second launch takes a part a warp,
+// empties its counts and ranks by a bitonic sort of the 256 (key, symbol)
+// pairs, 8 a lane. The state machine
+// gives a block 256 lanes of a large part, a warp an 8- or 64-lane part, a
+// thread a 1-lane part, 256 to a block; rans_layout and rans_write's coded
+// heads take a part a warp, and rans_write's raw payloads a 64 KB chunk a
+// block. rans_decode has no division: ~10 operations a symbol, a slot
+// table in shared memory, one thread a lane.
+//
+// Scratch that rans_tables and rans_layout are given is zero when they
+// start and zero again when they end (the block that consumes a value
+// resets it), so the wrapper keeps one buffer a stream and no memset runs.
+// Only rans_layout's look-back waits on other blocks, and only on tiles of
+// lower index, which start first (as in CUB's single-pass scans); what it
+// waits for depends on the part count alone, never on the data.
+//
+// The chunk list that rans_tables and rans_write take is checked on the
+// card, entry by entry (chunk_ok): a list that is not _prepare's leaves a
+// table of zeros, which makes rans_layout size the blobs past any buffer,
+// or makes rans_write set blob_off[P] to -1; either way nothing hangs, the
+// scratch is left zero and the download raises.
 #include <cstdint>
 #include <cuda_runtime.h>
 
@@ -54,10 +77,12 @@ constexpr int kThreads = 256;   // every kernel but rans_decode
 constexpr int kWarps = kThreads / 32;
 constexpr int kMeta = 4;        // meta row: data offset, n, lanes, first lane
 constexpr int kMaxLanes = 1024;
+constexpr int kLaneRows = kMaxLanes / 32;  // a warp's passes over a part's lanes
 constexpr int64_t kChunk = 1 << 16;  // bytes of a part a histogram or raw-copy block
 constexpr int kAhead = 16;  // symbols a lane loads ahead of its state chain
 constexpr uint8_t kMagic = 0xA9;
 constexpr uint8_t kRawFlag = 0x80;
+constexpr unsigned kAll = 0xffffffffu;
 // encode work rows (kind, first index into sel, parts)
 constexpr int kBlockPart = 0;  // 256 lanes of a part of 256 or 1024 lanes a block
 constexpr int kWarpPart = 1;   // up to 8 parts of 8 or 64 lanes, one a warp
@@ -82,48 +107,65 @@ __device__ __forceinline__ int put_varint(uint8_t* out, uint64_t v) {
   return n;
 }
 
-// Block-wide sum of v (every thread gets it). `sh` holds kWarps values and
-// is free again when the call returns.
 template <typename V>
-__device__ __forceinline__ V block_sum(V v, V* sh) {
+__device__ __forceinline__ V warp_sum(V v) {
 #pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  if ((threadIdx.x & 31) == 0) sh[threadIdx.x >> 5] = v;
-  __syncthreads();
-  V s = 0;
-#pragma unroll
-  for (int w = 0; w < kWarps; ++w) s += sh[w];
-  __syncthreads();
-  return s;
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(kAll, v, o);
+  return v;
 }
 
-// Block-wide exclusive prefix sum of v in thread order; *total gets the
-// sum. `sh` as for block_sum.
+// Inclusive prefix sum of v over the warp's lanes.
 template <typename V>
-__device__ __forceinline__ V block_excl_scan(V v, V* sh, V* total) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  V incl = v;
+__device__ __forceinline__ V warp_incl_scan(V v) {
+  const int lane = threadIdx.x & 31;
 #pragma unroll
   for (int o = 1; o < 32; o <<= 1) {
-    const V u = __shfl_up_sync(0xffffffffu, incl, o);
-    if (lane >= o) incl += u;
+    const V u = __shfl_up_sync(kAll, v, o);
+    if (lane >= o) v += u;
   }
-  if (lane == 31) sh[warp] = incl;
-  __syncthreads();
-  V before = 0, all = 0;
-#pragma unroll
-  for (int w = 0; w < kWarps; ++w) {
-    if (w < warp) before += sh[w];
-    all += sh[w];
-  }
-  __syncthreads();
-  *total = all;
-  return before + incl - v;
+  return v;
+}
+
+// The 8 int32 values at p (32-byte aligned).
+__device__ __forceinline__ void load8(const int32_t* p, int32_t v[8]) {
+  const int4 a = reinterpret_cast<const int4*>(p)[0];
+  const int4 b = reinterpret_cast<const int4*>(p)[1];
+  v[0] = a.x; v[1] = a.y; v[2] = a.z; v[3] = a.w;
+  v[4] = b.x; v[5] = b.y; v[6] = b.z; v[7] = b.w;
 }
 
 // ---------------------------------------------------------------------------
-// rans_tables: rans_hist (a block a chunk), then rans_quantize (a block a part)
+// rans_tables: a block a chunk, then a warp a part
 // ---------------------------------------------------------------------------
+
+// Loads and stores other blocks see while a kernel runs (rans_layout's look-back).
+__device__ __forceinline__ uint64_t load_relaxed(const uint64_t* p) {
+  uint64_t v;
+  asm volatile("ld.relaxed.gpu.global.u64 %0, [%1];" : "=l"(v) : "l"(p) : "memory");
+  return v;
+}
+
+__device__ __forceinline__ void store_relaxed(uint64_t* p, uint64_t v) {
+  asm volatile("st.relaxed.gpu.global.u64 [%0], %1;" ::"l"(p), "l"(v) : "memory");
+}
+
+// ceil(2^(shift + 31) / f) for f in [2, 4096], 2^(shift - 1) < f <= 2^shift
+// (ryg_rans' reciprocal, < 2^32), computed when the kernels are compiled.
+struct RcpTable {
+  uint32_t v[kProbScale + 1];
+};
+
+constexpr RcpTable make_rcp_table() {
+  RcpTable t{};
+  for (uint32_t f = 2; f <= kProbScale; ++f) {
+    uint32_t shift = 0;
+    while ((1u << shift) < f) ++shift;
+    t.v[f] = static_cast<uint32_t>(((uint64_t(1) << (shift + 31)) + f - 1) / f);
+  }
+  return t;
+}
+
+__device__ const RcpTable kRcp = make_rcp_table();
 
 // enc entry of a symbol: .x the reciprocal, .y bias | shift << 13 | f << 17
 // (bias = start, + 4095 for f = 1; bias < 2^13, shift < 2^4, f <= 2^12).
@@ -131,126 +173,298 @@ __device__ __forceinline__ uint2 enc_entry(uint32_t f, uint32_t start) {
   if (f == 0) return make_uint2(0, 0);
   if (f == 1) return make_uint2(0xFFFFFFFFu, (start + kProbScale - 1) | (1u << 17));
   const uint32_t shift = 32 - __clz(f - 1);  // 2^(shift - 1) < f <= 2^shift
-  const uint32_t rcp =
-      static_cast<uint32_t>(((uint64_t(1) << (shift + 31)) + f - 1) / f);
-  return make_uint2(rcp, start | ((shift - 1) << 13) | (f << 17));
+  return make_uint2(kRcp.v[f], start | ((shift - 1) << 13) | (f << 17));
 }
 
-// One block a chunk of a part (kChunk bytes at most): its bytes into a
-// histogram in shared memory with a private column a lane, so that a warp's
-// 32 atomics hit 32 banks, then the part's global counts.
-__global__ void __launch_bounds__(kThreads) rans_hist_kernel(
-    const uint8_t* __restrict__ data, int64_t n_data, const int64_t* __restrict__ meta,
-    const int64_t* __restrict__ chunks, uint32_t* __restrict__ counts) {
-  __shared__ uint32_t hist[256 * 32];  // [symbol][lane]
-  const int tid = threadIdx.x, lane = tid & 31;
-  const int64_t p = chunks[2 * static_cast<int64_t>(blockIdx.x)];
-  const int64_t start = chunks[2 * static_cast<int64_t>(blockIdx.x) + 1];
-  const int64_t* m = meta + p * kMeta;
-  const int64_t off = m[0] + start;
-  const int64_t end = off + (m[1] - start < kChunk ? m[1] - start : kChunk);
-  for (int i = tid; i < 256 * 32; i += kThreads) hist[i] = 0;
-  __syncthreads();
-  // 16-byte words over the chunk, the edges masked; bytes one by one in
-  // the last word of the data
-  for (int64_t w = (off & ~int64_t(15)) + int64_t(tid) * 16; w < end;
-       w += int64_t(kThreads) * 16) {
-    if (w + 16 <= n_data) {
-      const uint4 v = *reinterpret_cast<const uint4*>(data + w);
-      const uint32_t word[4] = {v.x, v.y, v.z, v.w};
+// Ascending bitonic sort of the warp's 256 keys, key[j] of lane l at
+// position 8 l + j: strides below 8 swap inside a lane, the others trade
+// with lane l ^ (stride / 8).
+template <typename K>
+__device__ __forceinline__ void warp_sort256(K key[8]) {
+  const int lane = threadIdx.x & 31;
 #pragma unroll
-      for (int b = 0; b < 16; ++b) {
-        const int64_t at = w + b;
-        if (at >= off && at < end)
-          atomicAdd(&hist[((word[b >> 2] >> (8 * (b & 3))) & 0xFF) * 32 + lane], 1u);
+  for (int lk = 1; lk <= 8; ++lk) {
+    const int k = 1 << lk;
+#pragma unroll
+    for (int ls = lk - 1; ls >= 0; --ls) {
+      const int st = 1 << ls;
+      if (st >= 8) {
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          const K o = __shfl_xor_sync(kAll, key[j], st >> 3);
+          const int i = 8 * lane + j;
+          const bool keep_min = ((i & st) == 0) == ((i & k) == 0);
+          key[j] = keep_min ? (o < key[j] ? o : key[j]) : (o > key[j] ? o : key[j]);
+        }
+      } else {
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          if ((j & st) == 0) {
+            const K a = key[j], b = key[j | st];
+            const bool swap = ((8 * lane + j) & k) == 0 ? a > b : a < b;
+            key[j] = swap ? b : a;
+            key[j | st] = swap ? a : b;
+          }
+        }
       }
-    } else {
-      for (int64_t at = w > off ? w : off; at < w + 16 && at < end; ++at)
-        atomicAdd(&hist[data[at] * 32 + lane], 1u);
     }
+  }
+}
+
+// quantize_freqs of one part (counts c8, total n) by one warp, lane l
+// holding symbols 8 l .. 8 l + 7: q = c * 4096 // n, every present symbol at
+// least 1; for diff = 4096 - sum(q) > 0 each of the m present symbols gets
+// diff // m and the first diff % m by (-rem, symbol) one more; for diff < 0,
+// passes of -1 over (rem, symbol), each over the symbols with q > 1: pass k
+// takes from those with q > k, so K - 1 whole passes take min(q - 1, K - 1)
+// from each and pass K one from the first of those with q > K, K the least
+// pass whose running total reaches -diff (at most the part's largest q).
+// Ranks come from warp_sort256 of (rem, symbol) keys; d_sh (256 ints of
+// shared memory) marks the symbols ranked first. X: the integer type of
+// c * 4096, rem and the keys, uint32_t for n < 2^20 (a quarter of the
+// 64-bit divisions' work, half the shuffles). Writes the part's
+// frequencies and enc table.
+template <typename X>
+__device__ __forceinline__ void quantize_warp(const uint32_t c8[8], int64_t n, int32_t* d_sh,
+                                              int32_t* __restrict__ fr,
+                                              uint2* __restrict__ en) {
+  constexpr X kTop = (X(1) << (sizeof(X) == 4 ? 23 : 55)) - 1;  // above any rem
+  const int lane = threadIdx.x & 31;
+  const X total = static_cast<X>(n);
+  uint32_t q[8];
+  X rem[8];
+  int32_t qsum = 0, n_present = 0;
+  uint32_t q_max = 0;
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    const X c = c8[j];
+    const X x = c * kProbScale;
+    const X qj = x / total;
+    rem[j] = x - qj * total;
+    q[j] = c > 0 && qj == 0 ? 1u : static_cast<uint32_t>(qj);
+    qsum += static_cast<int32_t>(q[j]);
+    n_present += c > 0;
+    q_max = q[j] > q_max ? q[j] : q_max;
+  }
+  const int32_t diff = static_cast<int32_t>(kProbScale) - warp_sum(qsum);
+  if (diff != 0) {  // warp-uniform
+    X key[8];
+    int32_t K = 0, first = 0;  // the last -1 pass; how many ranked first get one more
+    if (diff > 0) {
+      n_present = warp_sum(n_present);
+      first = diff % n_present;
+#pragma unroll
+      for (int j = 0; j < 8; ++j)  // (-rem, symbol) ascending
+        key[j] = c8[j] > 0 ? ((kTop - rem[j]) << 8) | X(8 * lane + j) : ~X(0);
+    } else {
+      const int32_t need = -diff;
+      for (int o = 16; o > 0; o >>= 1) {
+        const uint32_t u = __shfl_xor_sync(kAll, q_max, o);
+        q_max = u > q_max ? u : q_max;
+      }
+      auto taken = [&](int32_t k) {  // decrements in passes 1 .. k
+        int32_t t = 0;
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          const int32_t qu = static_cast<int32_t>(q[j]) - 1;
+          t += qu < 0 ? 0 : (qu < k ? qu : k);
+        }
+        return warp_sum(t);
+      };
+      int32_t lo = 1, hi = static_cast<int32_t>(q_max);
+      while (lo < hi) {
+        const int32_t mid = (lo + hi) >> 1;
+        if (taken(mid) >= need) hi = mid; else lo = mid + 1;
+      }
+      K = lo;
+      first = need - taken(K - 1);
+#pragma unroll
+      for (int j = 0; j < 8; ++j)  // (rem, symbol) ascending
+        key[j] = q[j] > static_cast<uint32_t>(K) ? (rem[j] << 8) | X(8 * lane + j) : ~X(0);
+    }
+    warp_sort256(key);
+#pragma unroll
+    for (int j = 0; j < 8; ++j) d_sh[8 * lane + j] = 0;
+    __syncwarp();
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+      if (8 * lane + j < first) d_sh[key[j] & 0xFF] = 1;  // ranked keys are real symbols
+    __syncwarp();
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const uint32_t more = static_cast<uint32_t>(d_sh[8 * lane + j]);
+      if (diff > 0) {
+        if (c8[j] > 0) q[j] += diff / n_present + more;
+      } else {
+        if (q[j] >= 1) q[j] -= min(q[j] - 1, static_cast<uint32_t>(K - 1));
+        q[j] -= more;
+      }
+    }
+  }
+  uint32_t sum = 0;
+#pragma unroll
+  for (int j = 0; j < 8; ++j) sum += q[j];
+  uint32_t start = warp_incl_scan(sum) - sum;
+  int4* f4 = reinterpret_cast<int4*>(fr + 8 * lane);
+  f4[0] = make_int4(q[0], q[1], q[2], q[3]);
+  f4[1] = make_int4(q[4], q[5], q[6], q[7]);
+  uint2 e[8];
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    e[j] = enc_entry(q[j], start);
+    start += q[j];
+  }
+  uint4* e4 = reinterpret_cast<uint4*>(en + 8 * lane);
+#pragma unroll
+  for (int j = 0; j < 4; ++j)
+    e4[j] = make_uint4(e[2 * j].x, e[2 * j].y, e[2 * j + 1].x, e[2 * j + 1].y);
+}
+
+// Whether entry c = (p, start) of a chunk list is where _prepare puts it:
+// (0, 0) first, then each entry the successor of the one before (the next
+// 64 KB of its part, or the next part's first), the last entry the last
+// part's last chunk. A list whose every entry passes is _prepare's. p is
+// checked against n_parts before meta is read.
+__device__ __forceinline__ bool chunk_ok(const int64_t* __restrict__ chunks, int64_t c,
+                                         int64_t n_chunks, const int64_t* __restrict__ meta,
+                                         int64_t n_parts, int64_t p, int64_t start) {
+  if (p < 0 || p >= n_parts || start < 0 || start % kChunk != 0) return false;
+  const int64_t n = meta[p * kMeta + 1];
+  bool ok = start < n;
+  if (c == 0) {
+    ok = ok && p == 0 && start == 0;
+  } else {
+    const int64_t q = chunks[2 * (c - 1)], s = chunks[2 * (c - 1) + 1];
+    if (start > 0) {
+      ok = ok && q == p && s == start - kChunk;
+    } else {  // the previous part's last chunk
+      ok = ok && p > 0 && q == p - 1 && s >= 0 && s % kChunk == 0 &&
+           s < meta[q * kMeta + 1] && s + kChunk >= meta[q * kMeta + 1];
+    }
+  }
+  if (c == n_chunks - 1) ok = ok && p == n_parts - 1 && start + kChunk >= n;
+  return ok;
+}
+
+// A chunk of a part (kChunk bytes at most) a block: its bytes into a
+// histogram in shared memory with a private column a lane, so that a
+// warp's 32 atomics hit 32 banks, then the chunk's counts to the part's row
+// of counts (stored by a part's only chunk, added by each of a larger
+// part's). A chunk entry that is not _prepare's marks its part and the
+// previous entry's part (where they are parts) invalid, and counts nothing.
+// scratch: u32[P * 256] counts, then u32[P] marks; zero when the launch
+// starts, emptied again by rans_quantize_kernel.
+__global__ void __launch_bounds__(kThreads, 6) rans_hist_kernel(
+    const uint8_t* __restrict__ data, int64_t n_data, const int64_t* __restrict__ meta,
+    const int64_t* __restrict__ chunks, int64_t n_chunks, int64_t n_parts,
+    uint32_t* __restrict__ scratch) {
+  __shared__ __align__(16) uint32_t hist[256 * 32];  // [symbol][lane]
+  uint32_t* part_counts = scratch;
+  uint32_t* marks = scratch + n_parts * 256;
+  const int tid = threadIdx.x, lane = tid & 31;
+  const int64_t b = blockIdx.x;
+  const int64_t p = chunks[2 * b];
+  const int64_t start = chunks[2 * b + 1];
+  if (!chunk_ok(chunks, b, n_chunks, meta, n_parts, p, start)) {
+    if (tid == 0) {
+      if (p >= 0 && p < n_parts) marks[p] = 1;
+      const int64_t q = b > 0 ? chunks[2 * (b - 1)] : -1;
+      if (q >= 0 && q < n_parts) marks[q] = 1;
+    }
+    return;
+  }
+  const int64_t* m = meta + p * kMeta;
+  const int64_t n = m[1];
+  const int64_t off = m[0] + start;
+  const int64_t end = off + (n - start < kChunk ? n - start : kChunk);
+  // 16-byte words over the chunk, kBatch a thread loaded at a time (the
+  // first batch before the histogram is zeroed), the edges masked; bytes
+  // one by one in the last word of the data
+  constexpr int kBatch = 4;
+  constexpr int64_t kStride = int64_t(kThreads) * 16;
+  int64_t w = (off & ~int64_t(15)) + int64_t(tid) * 16;
+  uint4 v[kBatch];
+  auto load = [&]() {
+#pragma unroll
+    for (int u = 0; u < kBatch; ++u) {
+      const int64_t at = w + u * kStride;
+      v[u] = at < end && at + 16 <= n_data ? *reinterpret_cast<const uint4*>(data + at)
+                                           : make_uint4(0, 0, 0, 0);
+    }
+  };
+  load();
+  for (int i = tid; i < 256 * 32 / 4; i += kThreads)
+    reinterpret_cast<uint4*>(hist)[i] = make_uint4(0, 0, 0, 0);
+  __syncthreads();
+  while (w < end) {
+#pragma unroll
+    for (int u = 0; u < kBatch; ++u) {
+      const int64_t at = w + u * kStride;
+      if (at >= end) break;
+      if (at + 16 <= n_data) {
+        const uint32_t word[4] = {v[u].x, v[u].y, v[u].z, v[u].w};
+#pragma unroll
+        for (int k = 0; k < 16; ++k) {
+          if (at + k >= off && at + k < end)
+            atomicAdd(&hist[((word[k >> 2] >> (8 * (k & 3))) & 0xFF) * 32 + lane], 1u);
+        }
+      } else {
+        for (int64_t i = at > off ? at : off; i < at + 16 && i < end; ++i)
+          atomicAdd(&hist[data[i] * 32 + lane], 1u);
+      }
+    }
+    w += kBatch * kStride;
+    if (w < end) load();
   }
   __syncthreads();
   const int s = tid;
   uint32_t c = 0;
 #pragma unroll 8
   for (int j = 0; j < 32; ++j) c += hist[s * 32 + ((j + s) & 31)];
-  if (c) atomicAdd(&counts[p * 256 + s], c);
+  uint32_t* pc = part_counts + p * 256;
+  if (n <= kChunk) {
+    pc[s] = c;
+  } else if (c) {
+    atomicAdd(&pc[s], c);
+  }
 }
 
-// One block a part, one thread a symbol: quantize_freqs of the part's
-// counts, then the encoder's table of the result.
-__global__ void __launch_bounds__(kThreads) rans_quantize_kernel(
-    const int64_t* __restrict__ meta, const uint32_t* __restrict__ counts,
+// A part a warp, 8 a block: takes the part's counts and mark, zeroing
+// them, and quantizes. A part that is marked, or whose counts do not sum
+// to its length (its chunks were not _prepare's), gets a table of zeros:
+// rans_layout then sizes its blob past any buffer, rans_write writes
+// nothing and the download raises.
+__global__ void __launch_bounds__(kThreads, 4) rans_quantize_kernel(
+    const int64_t* __restrict__ meta, int64_t n_parts, uint32_t* __restrict__ scratch,
     int32_t* __restrict__ freqs, uint2* __restrict__ enc) {
-  __shared__ uint64_t key_sh[256];
-  __shared__ uint32_t q_sh[256];
-  __shared__ int32_t red32[kWarps];
-  __shared__ int32_t kk_sh[2];  // the last pass K and the decrements before it
+  __shared__ int32_t d_sh[kWarps * 256];
   const int tid = threadIdx.x, lane = tid & 31;
-  const int s = tid;
-  const int64_t n = meta[static_cast<int64_t>(blockIdx.x) * kMeta + 1];
-  const uint64_t c = counts[static_cast<int64_t>(blockIdx.x) * 256 + s];
-  // quantize_freqs: q = c * 4096 // n, every present symbol at least 1
-  const uint64_t total = static_cast<uint64_t>(n);
-  const bool present = c > 0;
-  uint32_t q = static_cast<uint32_t>(c * kProbScale / total);
-  const uint64_t rem = c * kProbScale % total;
-  if (present && q == 0) q = 1;
-  const int32_t diff = static_cast<int32_t>(kProbScale) -
-                       block_sum<int32_t>(static_cast<int32_t>(q), red32);
-  if (diff > 0) {
-    // +1s cycling over the present symbols by (-rem, symbol)
-    const int32_t n_present = __syncthreads_count(present);
-    key_sh[s] = present ? (rem << 8) + (255 - s) + 1 : 0;
-    __syncthreads();
-    int32_t rank = 0;
-    const uint64_t key = key_sh[s];
-    for (int u = 0; u < 256; ++u) rank += key_sh[u] > key;
-    if (present) q += diff / n_present + (rank < diff % n_present);
-  } else if (diff < 0) {
-    // passes of -1 over (rem, symbol), each over the symbols with q > 1:
-    // pass k takes from those with q > k, so K - 1 whole passes take
-    // sum(min(q - 1, K - 1)) and pass K the rest, in (rem, symbol) order
-    const int32_t need = -diff;
-    q_sh[s] = q;
-    __syncthreads();
-    if (tid < 32) {
-      auto taken = [&](int32_t k) {  // decrements in passes 1 .. k
-        int32_t t = 0;
-        for (int u = lane; u < 256; u += 32) {
-          const int32_t qu = static_cast<int32_t>(q_sh[u]) - 1;
-          t += qu < 0 ? 0 : (qu < k ? qu : k);
-        }
+  const int64_t p = static_cast<int64_t>(blockIdx.x) * kWarps + (tid >> 5);
+  if (p >= n_parts) return;
+  uint4* row = reinterpret_cast<uint4*>(scratch + p * 256 + 8 * lane);
+  const uint4 a = row[0], c = row[1];
+  row[0] = row[1] = make_uint4(0, 0, 0, 0);
+  uint32_t* mark = scratch + n_parts * 256 + p;
+  const uint32_t marked = *mark;
+  if (lane == 0 && marked) *mark = 0;
+  const uint32_t c8[8] = {a.x, a.y, a.z, a.w, c.x, c.y, c.z, c.w};
+  const int64_t n = meta[p * kMeta + 1];
+  uint64_t total = 0;
 #pragma unroll
-        for (int o = 16; o > 0; o >>= 1) t += __shfl_xor_sync(0xffffffffu, t, o);
-        return t;
-      };
-      int32_t lo = 1, hi = static_cast<int32_t>(kProbScale);
-      while (lo < hi) {
-        const int32_t mid = (lo + hi) >> 1;
-        if (taken(mid) >= need) hi = mid; else lo = mid + 1;
-      }
-      const int32_t before = taken(lo - 1);
-      if (lane == 0) {
-        kk_sh[0] = lo;
-        kk_sh[1] = before;
-      }
-    }
-    __syncthreads();
-    const int32_t K = kk_sh[0], left = need - kk_sh[1];
-    const bool eligible = q > static_cast<uint32_t>(K);
-    key_sh[s] = eligible ? (rem << 8) + s : ~uint64_t(0);
-    __syncthreads();
-    int32_t rank = 0;
-    const uint64_t key = key_sh[s];
-    for (int u = 0; u < 256; ++u) rank += key_sh[u] < key;
-    if (q >= 1) q -= min(q - 1, static_cast<uint32_t>(K - 1));
-    if (eligible && rank < left) q -= 1;
+  for (int j = 0; j < 8; ++j) total += c8[j];
+  if (marked || warp_sum(total) != static_cast<uint64_t>(n)) {  // warp-uniform
+    int4* f4 = reinterpret_cast<int4*>(freqs + p * 256 + 8 * lane);
+    f4[0] = f4[1] = make_int4(0, 0, 0, 0);
+    uint4* e4 = reinterpret_cast<uint4*>(enc + p * 256 + 8 * lane);
+#pragma unroll
+    for (int j = 0; j < 4; ++j) e4[j] = make_uint4(0, 0, 0, 0);
+    return;
   }
-  freqs[static_cast<int64_t>(blockIdx.x) * 256 + s] = static_cast<int32_t>(q);
-  int32_t all;
-  const int32_t start = block_excl_scan<int32_t>(static_cast<int32_t>(q), red32, &all);
-  enc[static_cast<int64_t>(blockIdx.x) * 256 + s] = enc_entry(q, static_cast<uint32_t>(start));
+  int32_t* warp_d = d_sh + 256 * (tid >> 5);
+  if (n < (int64_t(1) << 20))  // c * 4096 < 2^32
+    quantize_warp<uint32_t>(c8, n, warp_d, freqs + p * 256, enc + p * 256);
+  else
+    quantize_warp<uint64_t>(c8, n, warp_d, freqs + p * 256, enc + p * 256);
 }
 
 // ---------------------------------------------------------------------------
@@ -404,86 +618,332 @@ __global__ void __launch_bounds__(kThreads) rans_encode_kernel(
 }
 
 // ---------------------------------------------------------------------------
-// rans_write: blocks of three roles, so that no large part rests on one
-// block: [0, P) a part's head each (header, frequency and lane-length
-// varints, states); then a work row of rans_encode each, whose coded parts'
-// lanes run their state machines again and write their streams in place;
-// then a 64 KB chunk of a part each, its raw payload where the part is a
-// raw escape.
+// rans_layout: a warp a part, a tile of 8 parts a block, one device-wide
+// scan by decoupled look-back
 // ---------------------------------------------------------------------------
 
-// blob_off: i64[P + 1] the blobs' offsets (a part whose size is its raw
-// size takes it only when written raw); stream_at: i64[P], where each
-// part's streams start in the output (-1 for a raw escape); lane_cs:
-// i64[lanes + 1], the exclusive prefix sum of the lanes' byte counts.
-__global__ void __launch_bounds__(kThreads) rans_write_kernel(
-    const uint8_t* __restrict__ data, const int64_t* __restrict__ meta,
-    const int64_t* __restrict__ chunks, const uint2* __restrict__ enc,
-    const int32_t* __restrict__ sel, const int32_t* __restrict__ work,
-    const int32_t* __restrict__ freqs, const int32_t* __restrict__ counts,
-    const int32_t* __restrict__ states, const int64_t* __restrict__ blob_off,
-    const int64_t* __restrict__ stream_at, const int64_t* __restrict__ lane_cs,
-    int n_parts, int64_t n_work, uint8_t* __restrict__ out) {
-  __shared__ uint2 tab[kWarps * 256];
-  __shared__ int32_t red32[kWarps];
-  const int tid = threadIdx.x;
-  const int64_t b = blockIdx.x;
-  if (b >= n_parts + n_work) {  // a chunk of a raw escape's payload
-    const int64_t* c = chunks + 2 * (b - n_parts - n_work);
-    const int64_t p = c[0], start = c[1];
-    if (stream_at[p] >= 0) return;
+// A tile's status word, one for each of its two sums: the flag in the top
+// two bits (1: the tile's own sum, 2: the sum of every tile up to and with
+// it), the value below.
+constexpr uint64_t kFlagOwn = uint64_t(1) << 62;
+constexpr uint64_t kFlagPrefix = uint64_t(2) << 62;
+constexpr uint64_t kValue = kFlagOwn - 1;
+// A blob whose part has no valid table: larger than any buffer (the
+// wrapper holds n_data below 2^40 and P below 2^21, so the sum stays below
+// 2^62).
+constexpr int64_t kInvalidSize = int64_t(1) << 40;
+
+// Warp 0 of tile t (t > 0): the sums of the tiles before it. Each pass reads
+// the words of the 32 tiles below `look`, waits until every one is set, and
+// adds them down to the nearest that holds a prefix.
+__device__ __forceinline__ void look_back(const uint64_t* status, int64_t t, int64_t* ex_b,
+                                          int64_t* ex_s) {
+  const int lane = threadIdx.x & 31;
+  int64_t sb = 0, ss = 0;
+  for (int64_t look = t - 1;; look -= 32) {
+    const int64_t i = look - lane;
+    uint64_t wb = kFlagPrefix, ws = kFlagPrefix;  // below tile 0: a prefix of 0
+    for (;;) {
+      if (i >= 0) {
+        wb = load_relaxed(status + 2 * i);
+        ws = load_relaxed(status + 2 * i + 1);
+      }
+      // the two words of a tile are stored one after the other: wait until
+      // both carry the same flag
+      if (__all_sync(kAll, (wb >> 62) != 0 && (wb >> 62) == (ws >> 62))) break;
+      __nanosleep(64);
+    }
+    const unsigned pre = __ballot_sync(kAll, (wb >> 62) == 2);
+    const int stop = pre ? __ffs(pre) - 1 : 31;
+    sb += warp_sum(lane <= stop ? static_cast<int64_t>(wb & kValue) : int64_t(0));
+    ss += warp_sum(lane <= stop ? static_cast<int64_t>(ws & kValue) : int64_t(0));
+    if (pre) break;
+  }
+  *ex_b = sb;
+  *ex_s = ss;
+}
+
+// Each part's blob size (entropy.assemble_blob: header, 256 frequency
+// varints, a lane-length varint and 4 state bytes a lane, the streams; or
+// the raw escape, header + n, where that is not smaller; kInvalidSize where
+// the frequencies do not sum to 4096, rans_tables' table of zeros), then the
+// exclusive prefix sums of the blob sizes (blob_off) and of the lanes'
+// byte counts (lane_cs) across the flush. status: u64[2 tiles + 1], zero
+// (two words a tile, then a ticket); the last tile to finish zeroes it
+// again. Tiles look back only at lower ones: blocks start in index order.
+__global__ void __launch_bounds__(kThreads) rans_layout_kernel(
+    const int64_t* __restrict__ meta, const int32_t* __restrict__ freqs,
+    const int32_t* __restrict__ counts, int64_t n_parts, uint64_t* __restrict__ status,
+    int64_t* __restrict__ blob_off, int64_t* __restrict__ stream_at,
+    int64_t* __restrict__ lane_cs) {
+  __shared__ int64_t size_sh[kWarps], sum_sh[kWarps], base_sh[2];
+  __shared__ int32_t last_sh;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int64_t t = blockIdx.x, n_tiles = gridDim.x;
+  const int64_t p = t * kWarps + warp;
+  int32_t cnt[kLaneRows];  // the part's lane counts, lane + 32 j
+  int64_t size = 0, sum = 0, streams = -1, lane0 = 0;
+  int L = 0;
+  if (p < n_parts) {
     const int64_t* m = meta + p * kMeta;
     const int64_t n = m[1];
-    const int64_t len = n - start < kChunk ? n - start : kChunk;
-    uint8_t* dst = out + blob_off[p] + 2 + varint_len(static_cast<uint64_t>(n)) + start;
-    const uint8_t* src = data + m[0] + start;
-    for (int64_t i = tid; i < len; i += kThreads) dst[i] = src[i];
+    L = static_cast<int>(m[2]);
+    lane0 = m[3];
+    int32_t f[8];
+    load8(freqs + p * 256 + 8 * lane, f);
+    int32_t vb = 0, f_sum = 0;  // varint bytes of the frequencies and the lane lengths
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      vb += f[j] >= 0x80 ? 2 : 1;
+      f_sum += f[j];
+    }
+#pragma unroll
+    for (int j = 0; j < kLaneRows; ++j) {
+      const int l = 32 * j + lane;
+      cnt[j] = l < L ? counts[lane0 + l] : 0;
+      sum += cnt[j];
+      vb += l < L ? varint_len(static_cast<uint32_t>(cnt[j])) : 0;
+    }
+    sum = warp_sum(sum);
+    const int64_t head = 2 + varint_len(static_cast<uint64_t>(n));
+    streams = head + warp_sum(vb) + 4 * L;
+    const bool raw = streams + sum >= head + n;
+    size = raw ? head + n : streams + sum;
+    if (raw) streams = -1;
+    if (warp_sum(f_sum) != static_cast<int32_t>(kProbScale)) {  // rans_tables' mark
+      size = kInvalidSize;
+      streams = -1;
+    }
+  }
+  if (lane == 0) {
+    size_sh[warp] = size;
+    sum_sh[warp] = sum;
+  }
+  __syncthreads();
+  if (warp == 0) {
+    int64_t own_b = 0, own_s = 0, ex_b = 0, ex_s = 0;
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w) {
+      own_b += size_sh[w];
+      own_s += sum_sh[w];
+    }
+    uint64_t* word = status + 2 * t;
+    if (t > 0) {
+      if (lane == 0) {
+        store_relaxed(word, kFlagOwn | static_cast<uint64_t>(own_b));
+        store_relaxed(word + 1, kFlagOwn | static_cast<uint64_t>(own_s));
+      }
+      look_back(status, t, &ex_b, &ex_s);
+    }
+    if (lane == 0) {
+      store_relaxed(word, kFlagPrefix | static_cast<uint64_t>(ex_b + own_b));
+      store_relaxed(word + 1, kFlagPrefix | static_cast<uint64_t>(ex_s + own_s));
+      base_sh[0] = ex_b;
+      base_sh[1] = ex_s;
+      __threadfence();
+      last_sh = atomicAdd(reinterpret_cast<unsigned long long*>(status + 2 * n_tiles), 1ull) ==
+                static_cast<unsigned long long>(n_tiles - 1);
+    }
+  }
+  __syncthreads();
+  if (p < n_parts) {
+    int64_t at = base_sh[0], run = base_sh[1];
+    for (int w = 0; w < warp; ++w) {
+      at += size_sh[w];
+      run += sum_sh[w];
+    }
+    if (lane == 0) {
+      blob_off[p] = at;
+      stream_at[p] = streams < 0 ? -1 : at + streams;
+      if (p == n_parts - 1) blob_off[n_parts] = at + size;
+    }
+#pragma unroll
+    for (int j = 0; j < kLaneRows; ++j) {
+      if (32 * j >= L) break;
+      const int l = 32 * j + lane;
+      const int32_t incl = warp_incl_scan(cnt[j]);
+      if (l < L) lane_cs[lane0 + l] = run + incl - cnt[j];
+      run += __shfl_sync(kAll, incl, 31);
+    }
+    if (p == n_parts - 1 && lane == 0) lane_cs[lane0 + L] = run;
+  }
+  if (last_sh)  // every tile has looked back: the status words are free again
+    for (int64_t i = tid; i <= 2 * n_tiles; i += kThreads) status[i] = 0;
+}
+
+// ---------------------------------------------------------------------------
+// rans_write: two kernels, so that no large part rests on one block and
+// the copies do not run at the state machine's occupancy. rans_write_kernel:
+// a 64 KB chunk of a part a block, its raw payload (and, for its first
+// chunk, its header) where the part is a raw escape; then a coded part's
+// head a warp (header, frequency and lane-length varints, states), 8 parts
+// a block; then 256 work rows of rans_encode a block, a thread a row,
+// marking the rows that hold a coded part. rans_streams_kernel: a work row
+// a block, whose coded parts' lanes run their state machines again and
+// write their streams in place; a row without one costs its block one load.
+// ---------------------------------------------------------------------------
+
+// 16 bytes of data from byte s on, any alignment: the aligned 16-byte words
+// that hold them, shifted down by s % 16 bytes (8, then 4, then a funnel
+// shift of 0-3 bytes). Next to the end of the data, byte by byte.
+__device__ __forceinline__ uint4 load16_at(const uint8_t* __restrict__ data, int64_t s,
+                                           int64_t n_data) {
+  const int64_t base = s & ~int64_t(15);
+  const int r = static_cast<int>(s & 15);
+  if (base + (r ? 32 : 16) > n_data) {
+    uint32_t v[4] = {0, 0, 0, 0};
+    for (int k = 0; k < 16 && s + k < n_data; ++k)
+      v[k >> 2] |= static_cast<uint32_t>(data[s + k]) << (8 * (k & 3));
+    return make_uint4(v[0], v[1], v[2], v[3]);
+  }
+  const uint4 lo = *reinterpret_cast<const uint4*>(data + base);
+  if (r == 0) return lo;
+  const uint4 hi = *reinterpret_cast<const uint4*>(data + base + 16);
+  uint32_t w[8] = {lo.x, lo.y, lo.z, lo.w, hi.x, hi.y, hi.z, hi.w};
+  if (r & 8) {
+#pragma unroll
+    for (int k = 0; k < 6; ++k) w[k] = w[k + 2];
+  }
+  if (r & 4) {
+#pragma unroll
+    for (int k = 0; k < 5; ++k) w[k] = w[k + 1];
+  }
+  const int sh = 8 * (r & 3);
+  return make_uint4(__funnelshift_r(w[0], w[1], sh), __funnelshift_r(w[1], w[2], sh),
+                    __funnelshift_r(w[2], w[3], sh), __funnelshift_r(w[3], w[4], sh));
+}
+
+// A block copies len bytes from data + s0 to out + d0: the 16-byte words of
+// out wholly inside [d0, d0 + len) as whole words, the ragged ends (under 16
+// bytes each) byte by byte.
+__device__ __forceinline__ void copy_realigned(uint8_t* __restrict__ out, int64_t d0,
+                                               const uint8_t* __restrict__ data, int64_t s0,
+                                               int64_t len, int64_t n_data) {
+  const int tid = threadIdx.x;
+  const int64_t a = (d0 + 15) & ~int64_t(15), e = (d0 + len) & ~int64_t(15);
+  if (a >= e) {
+    for (int64_t i = tid; i < len; i += kThreads) out[d0 + i] = data[s0 + i];
     return;
   }
-  if (b >= n_parts) {  // the streams of a work row's coded parts
-    encode_work<true>(work + (b - n_parts) * 3, data, meta, enc, sel, nullptr, nullptr,
-                      stream_at, lane_cs, out, tab);
-    return;
-  }
-  const int p = static_cast<int>(b);
-  const int64_t* m = meta + static_cast<int64_t>(p) * kMeta;
+  if (tid < a - d0) out[d0 + tid] = data[s0 + tid];
+  if (tid < d0 + len - e) out[e + tid] = data[s0 + (e - d0) + tid];
+  const int64_t shift = s0 - d0;
+#pragma unroll 4
+  for (int64_t w = a + 16 * int64_t(tid); w < e; w += 16 * int64_t(kThreads))
+    *reinterpret_cast<uint4*>(out + w) = load16_at(data, w + shift, n_data);
+}
+
+// A coded part's head by one warp: header, the 256 frequency varints (8
+// symbols a lane), the lane-length varints and the 4-byte states.
+__device__ __forceinline__ void write_head(const int64_t* __restrict__ m,
+                                           const int32_t* __restrict__ fr,
+                                           const int32_t* __restrict__ counts,
+                                           const int32_t* __restrict__ states, uint8_t* blob) {
+  const int lane = threadIdx.x & 31;
   const int64_t n = m[1], lane0 = m[3];
   const int L = static_cast<int>(m[2]);
-  const bool raw = stream_at[p] < 0;
-  uint8_t* blob = out + blob_off[p];
-  if (tid == 0) {
+  if (lane == 0) {
     blob[0] = kMagic;
-    blob[1] = raw ? kRawFlag : static_cast<uint8_t>(31 - __clz(L));
+    blob[1] = static_cast<uint8_t>(31 - __clz(L));
     put_varint(blob + 2, static_cast<uint64_t>(n));
   }
-  if (raw) return;
   const int head = 2 + varint_len(static_cast<uint64_t>(n));
-  // 256 frequency varints
-  const uint32_t f = static_cast<uint32_t>(freqs[static_cast<int64_t>(p) * 256 + tid]);
-  int32_t f_bytes;
-  const int32_t f_at = block_excl_scan<int32_t>(f >= 0x80 ? 2 : 1, red32, &f_bytes);
-  put_varint(blob + head + f_at, f);
-  // lane-length varints, then the states; 4 lanes a thread
-  int32_t cnt[4];
-  int32_t vl = 0;
+  int32_t f[8];
+  load8(fr + 8 * lane, f);
+  int32_t fb = 0;
 #pragma unroll
-  for (int j = 0; j < 4; ++j) {
-    const int l = tid * 4 + j;
-    cnt[j] = l < L ? counts[lane0 + l] : 0;
-    vl += l < L ? varint_len(static_cast<uint32_t>(cnt[j])) : 0;
+  for (int j = 0; j < 8; ++j) fb += f[j] >= 0x80 ? 2 : 1;
+  const int32_t f_incl = warp_incl_scan(fb);
+  uint8_t* at = blob + head + f_incl - fb;
+#pragma unroll
+  for (int j = 0; j < 8; ++j) at += put_varint(at, static_cast<uint32_t>(f[j]));
+  uint8_t* lens = blob + head + __shfl_sync(kAll, f_incl, 31);
+  int32_t run = 0;
+  for (int j = 0; 32 * j < L; ++j) {
+    const int l = 32 * j + lane;
+    const int32_t c = l < L ? counts[lane0 + l] : 0;
+    const int32_t vl = l < L ? varint_len(static_cast<uint32_t>(c)) : 0;
+    const int32_t incl = warp_incl_scan(vl);
+    if (l < L) put_varint(lens + run + incl - vl, static_cast<uint32_t>(c));
+    run += __shfl_sync(kAll, incl, 31);
   }
-  int32_t l_bytes;
-  int32_t l_at = block_excl_scan<int32_t>(vl, red32, &l_bytes);
-  const int64_t lens_at = head + f_bytes, states_at = lens_at + l_bytes;
-#pragma unroll
-  for (int j = 0; j < 4; ++j) {
-    const int l = tid * 4 + j;
-    if (l >= L) break;
-    l_at += put_varint(blob + lens_at + l_at, static_cast<uint32_t>(cnt[j]));
+  uint8_t* st = lens + run;
+  for (int l = lane; l < L; l += 32) {
     const uint32_t x = static_cast<uint32_t>(states[lane0 + l]);
 #pragma unroll
-    for (int k = 0; k < 4; ++k) blob[states_at + 4 * l + k] = static_cast<uint8_t>(x >> (8 * k));
+    for (int k = 0; k < 4; ++k) st[4 * l + k] = static_cast<uint8_t>(x >> (8 * k));
   }
+}
+
+// blob_off: i64[P + 1] the blobs' offsets; stream_at: i64[P], where each
+// part's streams start in the output (-1 for a raw escape); lane_cs:
+// i64[lanes + 1], the exclusive prefix sum of the lanes' byte counts (all
+// three from rans_layout). Neither kernel writes when the blobs would
+// overrun the buffer's cap bytes (the host sees blob_off[P] > cap); a chunk
+// entry that is not _prepare's sets blob_off[P] to -1 and copies nothing.
+// Blocks that read blob_off[P] after that write nothing either (it is out
+// of [0, cap] as unsigned); those that read it before write inside the
+// buffer, as the offsets are rans_layout's.
+__device__ __forceinline__ bool blobs_fit(const int64_t* blob_off, int64_t n_parts,
+                                          int64_t cap) {
+  return static_cast<uint64_t>(blob_off[n_parts]) <= static_cast<uint64_t>(cap);
+}
+
+__global__ void __launch_bounds__(kThreads) rans_write_kernel(
+    const uint8_t* __restrict__ data, int64_t n_data, const int64_t* __restrict__ meta,
+    const int64_t* __restrict__ chunks, int64_t n_chunks, const int32_t* __restrict__ sel,
+    const int32_t* __restrict__ work, int64_t n_work, const int32_t* __restrict__ freqs,
+    const int32_t* __restrict__ counts, const int32_t* __restrict__ states,
+    int64_t* __restrict__ blob_off, const int64_t* __restrict__ stream_at,
+    int64_t n_parts, int64_t cap, uint8_t* __restrict__ out, uint8_t* __restrict__ live) {
+  const int64_t b = blockIdx.x;
+  const bool fit = blobs_fit(blob_off, n_parts, cap);
+  const int64_t n_head = (n_parts + kWarps - 1) / kWarps;
+  if (b >= n_chunks + n_head) {  // which work rows hold a coded part
+    const int64_t row = (b - n_chunks - n_head) * kThreads + threadIdx.x;
+    if (row >= n_work || !fit) return;
+    const int32_t* w = work + row * 3;
+    const int parts = w[0] == kBlockPart ? 1 : w[2];
+    bool coded = false;
+    for (int i = 0; i < parts && !coded; ++i) coded = stream_at[sel[w[1] + i]] >= 0;
+    live[row] = coded;
+    return;
+  }
+  if (b < n_chunks) {  // a chunk of a raw escape
+    const int64_t p = chunks[2 * b], start = chunks[2 * b + 1];
+    if (!chunk_ok(chunks, b, n_chunks, meta, n_parts, p, start)) {
+      if (threadIdx.x == 0) blob_off[n_parts] = -1;
+      return;
+    }
+    // the part's words together, before the first is used
+    const int64_t at = stream_at[p], blob = blob_off[p], src = meta[p * kMeta],
+                  n = meta[p * kMeta + 1];
+    if (at >= 0 || !fit) return;
+    const int head = 2 + varint_len(static_cast<uint64_t>(n));
+    if (start == 0 && threadIdx.x == 0) {
+      out[blob] = kMagic;
+      out[blob + 1] = kRawFlag;
+      put_varint(out + blob + 2, static_cast<uint64_t>(n));
+    }
+    copy_realigned(out, blob + head + start, data, src + start,
+                   n - start < kChunk ? n - start : kChunk, n_data);
+    return;
+  }
+  const int64_t p = (b - n_chunks) * kWarps + (threadIdx.x >> 5);
+  if (p >= n_parts || stream_at[p] < 0 || !fit) return;
+  write_head(meta + p * kMeta, freqs + p * 256, counts, states, out + blob_off[p]);
+}
+
+__global__ void __launch_bounds__(kThreads) rans_streams_kernel(
+    const uint8_t* __restrict__ data, const int64_t* __restrict__ meta,
+    const uint2* __restrict__ enc, const int32_t* __restrict__ sel,
+    const int32_t* __restrict__ work, const int64_t* __restrict__ blob_off,
+    const int64_t* __restrict__ stream_at, const int64_t* __restrict__ lane_cs, int64_t n_parts,
+    int64_t cap, uint8_t* __restrict__ out, const uint8_t* __restrict__ live) {
+  __shared__ uint2 tab[kWarps * 256];
+  if (!blobs_fit(blob_off, n_parts, cap) || !live[blockIdx.x]) return;
+  encode_work<true>(work + static_cast<int64_t>(blockIdx.x) * 3, data, meta, enc, sel, nullptr,
+                    nullptr, stream_at, lane_cs, out, tab);
 }
 
 // ---------------------------------------------------------------------------
@@ -570,25 +1030,26 @@ __global__ void __launch_bounds__(1024) rans_decode_kernel(
 
 // data: u8[n_data] symbols of the flush's parts, 16-byte aligned; meta:
 // i64[P, 4] per part (data offset, n >= 1, lanes L, first lane); chunks:
-// i64[C, 2] (part, start) of every kChunk bytes of every part; counts:
-// u32[P, 256], zero; freqs: i32[P, 256] quantized frequencies; enc: u32[P,
-// 256, 2] the encoder's symbol table.
+// i64[C, 2] (part, start) of every kChunk bytes of every part; scratch:
+// u32[P * 257], zero, left zero; freqs: i32[P, 256] quantized frequencies;
+// enc: u32[P, 256, 2] the encoder's symbol table. Two launches: the
+// histograms, then the quantizers.
 extern "C" int agc_rans_tables(const uint8_t* data, int64_t n_data, const int64_t* meta,
                                const int64_t* chunks, int64_t n_chunks, int64_t n_parts,
-                               uint32_t* counts, int32_t* freqs, uint32_t* enc,
-                               void* stream) {
+                               uint32_t* scratch, int32_t* freqs, uint32_t* enc, void* stream) {
   using namespace agc::rans;
   if (n_parts <= 0) return 0;
-  if (n_parts > INT32_MAX || n_chunks > INT32_MAX || n_chunks < n_parts)
+  const int64_t quant = (n_parts + kWarps - 1) / kWarps;  // 8 quantizers a block
+  if (n_chunks <= 0 || n_chunks > INT32_MAX || quant > INT32_MAX ||
+      reinterpret_cast<uintptr_t>(data) % 16 != 0)
     return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (reinterpret_cast<uintptr_t>(data) % 16 != 0) return static_cast<int>(cudaErrorInvalidValue);
-  rans_hist_kernel<<<static_cast<unsigned>(n_chunks), kThreads, 0, st>>>(data, n_data, meta,
-                                                                          chunks, counts);
+  rans_hist_kernel<<<static_cast<unsigned>(n_chunks), kThreads, 0, st>>>(
+      data, n_data, meta, chunks, n_chunks, n_parts, scratch);
   const cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return static_cast<int>(e);
-  rans_quantize_kernel<<<static_cast<unsigned>(n_parts), kThreads, 0, st>>>(
-      meta, counts, freqs, reinterpret_cast<uint2*>(enc));
+  rans_quantize_kernel<<<static_cast<unsigned>(quant), kThreads, 0, st>>>(
+      meta, n_parts, scratch, freqs, reinterpret_cast<uint2*>(enc));
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -606,26 +1067,49 @@ extern "C" int agc_rans_encode(const uint8_t* data, const int64_t* meta, const u
   return static_cast<int>(cudaGetLastError());
 }
 
-// blob_off: i64[P + 1] exclusive prefix sum of the blob sizes; stream_at:
-// i64[P], where each part's streams start in out, -1 for a raw escape;
-// lane_cs: i64[lanes + 1]; out: the blobs, 8-byte aligned.
-extern "C" int agc_rans_write(const uint8_t* data, const int64_t* meta, const int64_t* chunks,
-                              int64_t n_chunks, const uint32_t* enc, const int32_t* sel,
-                              const int32_t* work, int64_t n_work, const int32_t* freqs,
-                              const int32_t* counts, const int32_t* states,
-                              const int64_t* blob_off, const int64_t* stream_at,
-                              const int64_t* lane_cs, int64_t n_parts, uint8_t* out,
-                              void* stream) {
+// status: u64[2 * tiles + 1] (tiles of 8 parts), zero, left zero; blob_off:
+// i64[P + 1]; stream_at: i64[P]; lane_cs: i64[lanes + 1].
+extern "C" int agc_rans_layout(const int64_t* meta, const int32_t* freqs, const int32_t* counts,
+                               int64_t n_parts, uint64_t* status, int64_t* blob_off,
+                               int64_t* stream_at, int64_t* lane_cs, void* stream) {
   using namespace agc::rans;
   if (n_parts <= 0) return 0;
-  const int64_t blocks = n_parts + n_work + n_chunks;
-  if (n_parts > INT32_MAX || blocks > INT32_MAX ||
-      reinterpret_cast<uintptr_t>(out) % 8 != 0)
+  const int64_t tiles = (n_parts + kWarps - 1) / kWarps;
+  if (tiles > INT32_MAX) return static_cast<int>(cudaErrorInvalidValue);
+  rans_layout_kernel<<<static_cast<unsigned>(tiles), kThreads, 0,
+                       static_cast<cudaStream_t>(stream)>>>(meta, freqs, counts, n_parts, status,
+                                                            blob_off, stream_at, lane_cs);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// blob_off, stream_at, lane_cs: rans_layout's; out: cap bytes, 16-byte
+// aligned, the blobs at blob_off; live: u8[B], scratch; data as for
+// agc_rans_tables.
+extern "C" int agc_rans_write(const uint8_t* data, int64_t n_data, const int64_t* meta,
+                              const int64_t* chunks, int64_t n_chunks, const uint32_t* enc,
+                              const int32_t* sel, const int32_t* work, int64_t n_work,
+                              const int32_t* freqs, const int32_t* counts,
+                              const int32_t* states, int64_t* blob_off,
+                              const int64_t* stream_at, const int64_t* lane_cs, int64_t n_parts,
+                              int64_t cap, uint8_t* out, uint8_t* live, void* stream) {
+  using namespace agc::rans;
+  if (n_parts <= 0) return 0;
+  // chunks, 8 heads a block, 256 work rows a block
+  const int64_t blocks =
+      n_chunks + (n_parts + kWarps - 1) / kWarps + (n_work + kThreads - 1) / kThreads;
+  if (n_parts > INT32_MAX || blocks > INT32_MAX || n_work > INT32_MAX ||
+      n_chunks < n_parts ||
+      reinterpret_cast<uintptr_t>(data) % 16 != 0 || reinterpret_cast<uintptr_t>(out) % 16 != 0)
     return static_cast<int>(cudaErrorInvalidValue);
-  rans_write_kernel<<<static_cast<unsigned>(blocks), kThreads, 0,
-                      static_cast<cudaStream_t>(stream)>>>(
-      data, meta, chunks, reinterpret_cast<const uint2*>(enc), sel, work, freqs, counts, states,
-      blob_off, stream_at, lane_cs, static_cast<int>(n_parts), n_work, out);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  rans_write_kernel<<<static_cast<unsigned>(blocks), kThreads, 0, st>>>(
+      data, n_data, meta, chunks, n_chunks, sel, work, n_work, freqs, counts, states, blob_off,
+      stream_at, n_parts, cap, out, live);
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess || n_work <= 0) return static_cast<int>(e);
+  rans_streams_kernel<<<static_cast<unsigned>(n_work), kThreads, 0, st>>>(
+      data, meta, reinterpret_cast<const uint2*>(enc), sel, work, blob_off, stream_at, lane_cs,
+      n_parts, cap, out, live);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -121,8 +121,9 @@ def _bind(lib) -> None:
     ]
     lib.agc_rans_tables.argtypes = [vp, i64, vp, vp, i64, i64, vp, vp, vp, vp]
     lib.agc_rans_encode.argtypes = [vp, vp, vp, vp, vp, i64, vp, vp, vp]
-    lib.agc_rans_write.argtypes = [vp, vp, vp, i64, vp, vp, vp, i64, vp, vp, vp, vp, vp, vp,
-                                   i64, vp, vp]
+    lib.agc_rans_layout.argtypes = [vp, vp, vp, i64, vp, vp, vp, vp, vp]
+    lib.agc_rans_write.argtypes = [vp, i64, vp, vp, i64, vp, vp, vp, i64, vp, vp, vp, vp, vp,
+                                   vp, i64, i64, vp, vp, vp]
     lib.agc_rans_decode.argtypes = [vp, vp, vp, vp, i64, i32, vp, vp]
     for fn in (lib.agc_scan_fused, lib.agc_kmer_canon, lib.agc_kmer_dir_rc,
                lib.agc_walk_index_tile,
@@ -130,8 +131,8 @@ def _bind(lib) -> None:
                lib.agc_scan_fused_tile, lib.agc_member_mix, lib.agc_mix_set_words,
                lib.agc_mix_dir_bits, lib.agc_mix_set_debug, lib.agc_dir_mix,
                lib.agc_match_estimate_tile, lib.agc_match_estimate,
-               lib.agc_rans_tables, lib.agc_rans_encode, lib.agc_rans_write,
-               lib.agc_rans_decode):
+               lib.agc_rans_tables, lib.agc_rans_encode, lib.agc_rans_layout,
+               lib.agc_rans_write, lib.agc_rans_decode):
         fn.restype = ctypes.c_int
     lib.agc_cuda_error_string.argtypes = [ctypes.c_int]
     lib.agc_cuda_error_string.restype = ctypes.c_char_p

@@ -63,8 +63,8 @@ _MIX_DIR_MAX_BITS = 14
 LAUNCHES = {"scan_fused": 0, "kmer_canon": 0, "kmer_dir_rc": 0, "walk_index": 0,
             "greedy_walk": 0, "member_mix": 0, "dir_mix": 0,
             # counted by ops/cuda_match.py and ops/device_rans.py
-            "match_estimate": 0, "rans_tables": 0, "rans_encode": 0, "rans_write": 0,
-            "rans_decode": 0}
+            "match_estimate": 0, "rans_tables": 0, "rans_encode": 0, "rans_layout": 0,
+            "rans_write": 0, "rans_decode": 0}
 _launch_lock = threading.Lock()
 
 

@@ -1,7 +1,8 @@
 """The device rANS coder of the tpu-rans profile: ``encode_batch``,
-``compress_device`` and ``decompress_device`` around four hand-written
-kernels (``csrc/rans.cu``): ``rans_tables``, ``rans_encode`` and
-``rans_write`` code a store flush, ``rans_decode`` decodes one blob.
+``compress_device`` and ``decompress_device`` around five hand-written
+kernels (``csrc/rans.cu``): ``rans_tables``, ``rans_encode``,
+``rans_layout`` and ``rans_write`` code a store flush, ``rans_decode``
+decodes one blob.
 
 Counterpart of agc_tpu's ``ops/device_rans.py``. Its blobs are byte-equal
 to the host coder's (``core/entropy.py``): the tables follow
@@ -13,20 +14,23 @@ Which engine runs where:
 
 - CUDA tensors (``device="cuda"``): the kernels. A flush is uploaded once
   (its parts' bytes, a meta row a part and the encode's schedule) and
-  coded on the card in three steps: ``rans_tables`` (each part's
-  histogram and quantized frequencies, and the encoder's reciprocal
-  table), ``rans_encode`` (every lane of every part: its byte count and
-  final state) and ``rans_write`` (each part's whole blob, or its raw
-  escape, at offsets from a prefix sum of the blob sizes; the coded parts'
-  lanes run again and write their bytes in place); the host downloads one
-  buffer and the offsets, and slices it. ``rans_decode`` decodes one blob,
-  one thread a lane.
+  coded on the card with no sync until its download: ``rans_tables``
+  (each part's histogram and quantized frequencies, and the encoder's
+  reciprocal table), ``rans_encode`` (every lane of every part: its byte
+  count and final state), then ``rans_write``, which runs ``rans_layout``
+  (each part's blob size, raw or coded, and the blobs' and lanes' offsets
+  by one device-wide scan) and writes each part's whole blob, or its raw
+  escape, at its offset (the coded parts' lanes run again and write their
+  bytes in place) into a buffer sized from the flush's shapes
+  (``blob_cap``); the host downloads the offsets, then the blobs' bytes,
+  and slices them. ``rans_decode`` decodes one blob, one thread a lane.
 - CPU tensors (``device="cpu"``): their plain PyTorch versions
   (``rans_tables_plain``: bincounts and ``quantize_plain``, the same
   closed form of ``quantize_freqs`` as torch ops across parts;
   ``rans_encode_plain``: agc_tpu's ``_encode_batch_fn``, a loop over
   steps of (B, L) int64 ops a lane tier, dividing by f;
-  ``rans_write_plain``: its streams, and the blobs by scatters; ``rans_decode_plain``:
+  ``blob_offsets``: the layout by cumsums; ``rans_write_plain``: its
+  streams, and the blobs by scatters; ``rans_decode_plain``:
   ``_decode_fn``). They are the oracle the kernels are held against;
   nothing runs them for a CUDA tensor.
 - The engine reaches this module only when ``AGC_TPU_RANS_DEVICE`` forces
@@ -41,8 +45,7 @@ no compile cache here, so one ragged launch a kernel takes the whole flush.
 ``encode_batch`` runs as five module functions, looked up at call time so
 that a caller can time each: ``_prepare`` (host: concatenation, one meta
 row a part and the encode's work rows, from the lengths alone),
-``_upload``, ``code_flush`` (the three kernels), ``_download`` and
-``_slice``.
+``_upload``, ``code_flush`` (the kernels), ``_download`` and ``_slice``.
 
 State arithmetic in the plain versions is int64 (torch has no uint32
 shift): states stay below 2^31 and ``f * (x >> 12) + slot`` below 2^31,
@@ -53,6 +56,7 @@ held in int32 tensors, bit for bit.
 
 from __future__ import annotations
 
+import threading
 from dataclasses import dataclass
 
 import numpy as np
@@ -67,6 +71,8 @@ _M32 = 0xFFFFFFFF
 _LANES = (1, 8, 64, 256, 1024)
 _EMPTY_BLOB = bytes([E.MAGIC, 0, 0])  # header of n = 0
 _CHUNK = 1 << 16  # csrc/rans.cu's kChunk: bytes of a part a histogram / raw-copy block
+_TILE = 8  # parts a block of rans_layout (a warp a part)
+_INVALID_SIZE = 1 << 40  # csrc/rans.cu's kInvalidSize: the blob of a part with no valid table
 # rans_encode's work rows (csrc/rans.cu): (kind, index into sel, first lane
 # or parts)
 _BLOCK_PART, _WARP_PART, _LANE_PART = 0, 1, 2
@@ -118,6 +124,25 @@ def _put_varints(out: torch.Tensor, pos: torch.Tensor, v: torch.Tensor) -> None:
     """Write the varint of each value at its position in ``out``."""
     b, nb = varints(v)
     out[_ranges(pos.reshape(-1), nb)] = b
+
+
+_ZEROED: dict[tuple[int, int], torch.Tensor] = {}
+_zeroed_lock = threading.Lock()
+
+
+def _zeroed(t: torch.Tensor, n_bytes: int) -> torch.Tensor:
+    """Scratch of at least ``n_bytes`` on ``t``'s device for kernels on its
+    current stream, zero when a kernel starts: ``rans_tables`` (each part's
+    counts and mark) and ``rans_layout`` (its look-back's status words)
+    leave it zero when they end, so no memset runs before them. One buffer
+    a stream: launches on it run in order."""
+    key = (t.device.index, _stream(t))
+    with _zeroed_lock:
+        buf = _ZEROED.get(key)
+        if buf is None or buf.numel() < n_bytes:
+            buf = torch.zeros(max(n_bytes, 1 << 16), dtype=torch.uint8, device=t.device)
+            _ZEROED[key] = buf
+        return buf
 
 
 # ---------------------------------------------------------------------------
@@ -218,9 +243,27 @@ def _check_flush(name: str, data: torch.Tensor, meta: torch.Tensor) -> None:
              and meta.shape[0] > 0, f"{name}: meta must be int64[P, 4], P > 0")
 
 
-def _check_chunks(name: str, chunks: torch.Tensor) -> None:
+def _chunk_rows(lens: np.ndarray) -> np.ndarray:
+    """int64[C, 2], (part, start) of every 64 KB of every part of these
+    lengths, in order: the chunk list the kernels take (``_prepare``
+    builds it; the card checks each entry against its neighbour)."""
+    n_chunks = -(-lens // _CHUNK)
+    c_part = np.repeat(np.arange(len(lens)), n_chunks)
+    c_start = np.arange(len(c_part)) - np.repeat(np.cumsum(n_chunks) - n_chunks, n_chunks)
+    return np.stack([c_part, c_start * _CHUNK], axis=1)
+
+
+def _check_chunks(name: str, meta: torch.Tensor, chunks: torch.Tensor) -> None:
+    """The chunk list's shape; on the CPU also its entries, which must be
+    ``_chunk_rows`` of the parts' lengths (on the card the kernels check
+    them, and the download raises)."""
     _require(chunks.dim() == 2 and chunks.shape[1] == 2 and chunks.dtype == torch.int64,
              f"{name}: chunks must be int64[C, 2]")
+    if chunks.device.type == "cpu" and meta.device.type == "cpu":
+        want = _chunk_rows(meta[:, 1].numpy())
+        _require(chunks.shape == want.shape and (chunks.numpy() == want).all(),
+                 f"{name}: chunks must be (part, start) of every 64 KB of every part, "
+                 "in order, as _prepare builds them")
 
 
 def rans_tables(data: torch.Tensor, meta: torch.Tensor, chunks: torch.Tensor):
@@ -228,24 +271,27 @@ def rans_tables(data: torch.Tensor, meta: torch.Tensor, chunks: torch.Tensor):
 
     data: uint8[N], the parts' symbols concatenated; meta: int64[P, 4], a
     row a part: data offset, length n >= 1, lanes ``lanes_for(n)``, its
-    first lane in the flush; chunks: int64[C, 2], (part, start) of every 64 KB of every
-    part. ``_prepare`` builds these. Returns (int32[P, 256] frequencies,
-    equal to ``entropy.quantize_freqs`` of each part's counts; int32[P,
-    256, 2] the table of ``enc_table_plain``)."""
+    first lane in the flush; chunks: int64[C, 2], (part, start) of every
+    64 KB of every part. ``_prepare`` builds these. Returns (int32[P, 256]
+    frequencies, equal to ``entropy.quantize_freqs`` of each part's counts;
+    int32[P, 256, 2] the table of ``enc_table_plain``). On the card, two
+    launches (histograms a chunk a block, then a warp a part); a chunk list
+    that is not ``_prepare``'s gives its parts tables of zeros, which
+    ``rans_write`` does not write and ``_download`` refuses."""
     _check_flush("rans_tables", data, meta)
-    _check_chunks("rans_tables", chunks)
+    _check_chunks("rans_tables", meta, chunks)
     if data.device.type == "cpu":
         return rans_tables_plain(data, meta)
     _check_cuda("rans_tables", data, meta, chunks)
     _require(data.data_ptr() % 16 == 0, "rans_tables: data must be 16-byte aligned")
-    p = meta.shape[0]
-    counts = torch.zeros((p, 256), dtype=torch.int32, device=data.device)
+    p, c = meta.shape[0], chunks.shape[0]
+    _require(c >= p, "rans_tables: every part has a chunk")
+    scratch = _zeroed(data, 4 * 257 * p)  # counts and a mark a part
     freqs = torch.empty((p, 256), dtype=torch.int32, device=data.device)
     enc = torch.empty((p, 256, 2), dtype=torch.int32, device=data.device)
     with torch.cuda.device(data.device):
         rc = _build.lib().agc_rans_tables(data.data_ptr(), data.numel(), meta.data_ptr(),
-                                          chunks.data_ptr(),
-                                          chunks.shape[0], p, counts.data_ptr(),
+                                          chunks.data_ptr(), c, p, scratch.data_ptr(),
                                           freqs.data_ptr(), enc.data_ptr(), _stream(data))
     _build.check(rc, "rans_tables")
     _count("rans_tables")
@@ -332,16 +378,18 @@ def rans_encode_plain(data: torch.Tensor, meta: torch.Tensor, enc: torch.Tensor,
 
 
 def rans_encode(data: torch.Tensor, meta: torch.Tensor, enc: torch.Tensor,
-                sel: torch.Tensor, work: torch.Tensor):
+                sel: torch.Tensor, work: torch.Tensor, n_lanes: int | None = None):
     """Run every lane of every part of a flush in one launch: each lane's
     byte count and final state (``rans_write`` runs the coded parts' lanes
     again to write their bytes in place, once the blobs' offsets are known).
 
     data, meta: as for ``rans_tables``; enc: its symbol table; sel:
     int32[P] the parts in work order, work: int32[B, 3] a row a block
-    (kind, index into sel, first lane or parts), both from ``_prepare``.
-    Returns (int32[lanes] the streams' byte counts; int32[lanes] final
-    states, uint32 bits)."""
+    (kind, index into sel, first lane or parts), both from ``_prepare``;
+    n_lanes: the flush's lanes (``Prepared.n_lanes``), required on the
+    card, where reading them from meta would wait on it; the plain version
+    reads meta. Returns (int32[lanes] the streams' byte counts;
+    int32[lanes] final states, uint32 bits)."""
     _check_flush("rans_encode", data, meta)
     p = meta.shape[0]
     _require(enc.shape == (p, 256, 2) and enc.dtype == torch.int32,
@@ -352,7 +400,9 @@ def rans_encode(data: torch.Tensor, meta: torch.Tensor, enc: torch.Tensor,
     if data.device.type == "cpu":
         return rans_encode_plain(data, meta, enc, sel, work)
     _check_cuda("rans_encode", data, meta, enc, sel, work)
-    counts = torch.empty(_n_lanes(meta), dtype=torch.int32, device=data.device)
+    _require(n_lanes is not None, "rans_encode: n_lanes (Prepared.n_lanes) is required on the "
+             "card: reading it from meta would sync")
+    counts = torch.empty(n_lanes, dtype=torch.int32, device=data.device)
     states = torch.empty_like(counts)
     with torch.cuda.device(data.device):
         rc = _build.lib().agc_rans_encode(
@@ -382,10 +432,12 @@ def blob_offsets(meta: torch.Tensor, freqs: torch.Tensor, counts: torch.Tensor):
     """The layout of a flush's blobs, from the sizes of
     ``entropy.assemble_blob`` (header, 256 frequency varints, a lane-length
     varint and 4 state bytes a lane, the streams; or the raw escape, header
-    + n, where that is not smaller): (int64[P + 1] each blob's offset in
-    the flush's buffer; int64[P] where its streams start in that buffer, -1
-    for a raw escape; int64[lanes + 1] the exclusive prefix sum of the
-    lanes' byte counts)."""
+    + n, where that is not smaller; 2^40 bytes, past any buffer, where the
+    frequencies do not sum to 4096: ``rans_tables``' table of zeros for a
+    chunk list that is not ``_prepare``'s): (int64[P + 1] each blob's
+    offset in the flush's buffer; int64[P] where its streams start in that
+    buffer, -1 for a raw escape; int64[lanes + 1] the exclusive prefix sum
+    of the lanes' byte counts)."""
     n, n_lane, lane0 = meta[:, 1], meta[:, 2], meta[:, 3]
     head = 2 + varint_len(n)
     lane_cs = torch.zeros(counts.numel() + 1, dtype=torch.int64, device=counts.device)
@@ -396,9 +448,49 @@ def blob_offsets(meta: torch.Tensor, freqs: torch.Tensor, counts: torch.Tensor):
                + vl[lane0 + n_lane] - vl[lane0])
     coded = streams + lane_cs[lane0 + n_lane] - lane_cs[lane0]
     raw = coded >= head + n
+    bad = freqs.sum(dim=1) != E.PROB_SCALE
+    size = torch.where(bad, _INVALID_SIZE, torch.where(raw, head + n, coded))
     blob_off = torch.zeros(n.numel() + 1, dtype=torch.int64, device=n.device)
-    blob_off[1:] = torch.cumsum(torch.where(raw, head + n, coded), 0)
-    return blob_off, torch.where(raw, -1, blob_off[:-1] + streams), lane_cs
+    blob_off[1:] = torch.cumsum(size, 0)
+    return blob_off, torch.where(raw | bad, -1, blob_off[:-1] + streams), lane_cs
+
+
+def rans_layout(meta: torch.Tensor, freqs: torch.Tensor, counts: torch.Tensor):
+    """``blob_offsets`` on the card, with no sync: a warp a part sums its
+    frequency and lane-length varints and its lanes' byte counts and
+    chooses raw or coded, and one device-wide scan (decoupled look-back
+    over tiles of 8 parts) gives the offsets. Inputs and outputs as for
+    ``blob_offsets``."""
+    _require(meta.dim() == 2 and meta.shape[1] == 4 and meta.dtype == torch.int64
+             and meta.shape[0] > 0, "rans_layout: meta must be int64[P, 4], P > 0")
+    _require(freqs.shape == (meta.shape[0], 256) and freqs.dtype == torch.int32,
+             "rans_layout: freqs must be int32[P, 256]")
+    _require(counts.dim() == 1 and counts.dtype == torch.int32,
+             "rans_layout: counts must be int32[lanes]")
+    if meta.device.type == "cpu":
+        return blob_offsets(meta, freqs, counts)
+    _check_cuda("rans_layout", meta, freqs, counts)
+    p = meta.shape[0]
+    _require(p < 1 << 21, "rans_layout: at most 2^21 - 1 parts")  # sums below 2^62
+    tiles = -(-p // _TILE)
+    status = _zeroed(meta, 8 * (2 * tiles + 1))
+    blob_off = torch.empty(p + 1, dtype=torch.int64, device=meta.device)
+    stream_at = torch.empty(p, dtype=torch.int64, device=meta.device)
+    lane_cs = torch.empty(counts.numel() + 1, dtype=torch.int64, device=meta.device)
+    with torch.cuda.device(meta.device):
+        rc = _build.lib().agc_rans_layout(
+            meta.data_ptr(), freqs.data_ptr(), counts.data_ptr(), p, status.data_ptr(),
+            blob_off.data_ptr(), stream_at.data_ptr(), lane_cs.data_ptr(), _stream(meta))
+    _build.check(rc, "rans_layout")
+    _count("rans_layout")
+    return blob_off, stream_at, lane_cs
+
+
+def blob_cap(n_data: int, n_parts: int) -> int:
+    """Bytes that hold every blob of a flush of n_parts parts tiling
+    n_data bytes, from its shapes alone: a blob is never larger than its
+    raw escape, 2 + varint_len(n) + n, and no n exceeds n_data."""
+    return n_data + n_parts * (2 + E._varint_len(n_data))
 
 
 def rans_write_plain(data, meta, freqs, enc, counts, states, blob_off):
@@ -443,43 +535,53 @@ def rans_write(data: torch.Tensor, meta: torch.Tensor, chunks: torch.Tensor,
                sel: torch.Tensor, work: torch.Tensor, freqs: torch.Tensor, enc: torch.Tensor,
                counts: torch.Tensor, states: torch.Tensor):
     """Every part's blob of ``entropy.assemble_blob`` (or its raw escape)
-    into one buffer: (uint8[S] the blobs back to back, int64[P + 1] their
-    offsets). Inputs: the flush as ``rans_encode`` takes it (data, meta,
-    chunks, sel, work), ``rans_tables``' outputs and ``rans_encode``'s on
-    it; the coded parts' lanes run again and write their streams in
-    place."""
+    into one buffer: (uint8[S], the blobs back to back in its first
+    blob_off[-1] bytes; int64[P + 1] their offsets). Inputs: the flush as
+    ``rans_encode`` takes it (data, meta, chunks, sel, work; parts tiling
+    data), ``rans_tables``' outputs and ``rans_encode``'s on it. The layout
+    is ``rans_layout``'s; on the card S is ``blob_cap(N, P)``, known
+    before the layout, so nothing waits on the host; the coded parts'
+    lanes run again and write their streams in place, raw payloads are
+    copied as 16-byte words. A chunk list that is not ``_prepare``'s sets
+    blob_off[P] to -1 on the card, which ``_download`` refuses."""
     _check_flush("rans_write", data, meta)
-    _check_chunks("rans_write", chunks)
+    _check_chunks("rans_write", meta, chunks)
     p = meta.shape[0]
-    _require(freqs.shape == (p, 256) and freqs.dtype == torch.int32
-             and enc.shape == (p, 256, 2) and enc.dtype == torch.int32,
-             "rans_write: freqs must be int32[P, 256], enc int32[P, 256, 2]")
-    _require(counts.dim() == 1 and counts.shape == states.shape
-             and counts.dtype == torch.int32 and states.dtype == torch.int32,
+    _require(enc.shape == (p, 256, 2) and enc.dtype == torch.int32,
+             "rans_write: enc must be int32[P, 256, 2]")
+    _require(counts.shape == states.shape and states.dtype == torch.int32,
              "rans_write: counts, states must be int32[lanes]")
-    blob_off, stream_at, lane_cs = blob_offsets(meta, freqs, counts)
+    blob_off, stream_at, lane_cs = rans_layout(meta, freqs, counts)
     if data.device.type == "cpu":
+        _require(int(blob_off[-1]) <= blob_cap(data.numel(), p),
+                 "rans_write: a part's tables are not valid")
         return rans_write_plain(data, meta, freqs, enc, counts, states, blob_off), blob_off
     _check_cuda("rans_write", data, meta, chunks, sel, work, freqs, enc, counts, states)
-    out = torch.empty(int(blob_off[-1]), dtype=torch.uint8, device=data.device)
+    _require(data.data_ptr() % 16 == 0 and data.numel() < _INVALID_SIZE,
+             "rans_write: data must be 16-byte aligned, below 2^40 bytes")
+    _require(chunks.shape[0] >= p, "rans_write: every part has a chunk")
+    cap = blob_cap(data.numel(), p)
+    out = torch.empty(cap, dtype=torch.uint8, device=data.device)
+    live = torch.empty(work.shape[0], dtype=torch.uint8, device=data.device)
     with torch.cuda.device(data.device):
         rc = _build.lib().agc_rans_write(
-            data.data_ptr(), meta.data_ptr(), chunks.data_ptr(), chunks.shape[0],
+            data.data_ptr(), data.numel(), meta.data_ptr(), chunks.data_ptr(), chunks.shape[0],
             enc.data_ptr(), sel.data_ptr(), work.data_ptr(), work.shape[0], freqs.data_ptr(),
             counts.data_ptr(), states.data_ptr(), blob_off.data_ptr(), stream_at.data_ptr(),
-            lane_cs.data_ptr(), p, out.data_ptr(), _stream(data))
+            lane_cs.data_ptr(), p, cap, out.data_ptr(), live.data_ptr(), _stream(data))
     _build.check(rc, "rans_write")
     _count("rans_write")
     return out, blob_off
 
 
 def code_flush(data: torch.Tensor, meta: torch.Tensor, chunks: torch.Tensor,
-               sel: torch.Tensor, work: torch.Tensor):
+               sel: torch.Tensor, work: torch.Tensor, n_lanes: int | None = None):
     """A flush's blobs on ``data``'s device: ``rans_tables``, then
-    ``rans_encode``, then ``rans_write``. Returns (uint8 blobs back to back,
-    int64[P + 1] offsets)."""
+    ``rans_encode``, then ``rans_write``, with no sync on the card (which
+    needs n_lanes, ``Prepared.n_lanes``). Returns (uint8 blobs back to
+    back, int64[P + 1] offsets)."""
     freqs, enc = rans_tables(data, meta, chunks)
-    counts, states = rans_encode(data, meta, enc, sel, work)
+    counts, states = rans_encode(data, meta, enc, sel, work, n_lanes)
     return rans_write(data, meta, chunks, sel, work, freqs, enc, counts, states)
 
 
@@ -572,6 +674,10 @@ class Prepared:
     sel: np.ndarray  # int32[P]
     work: np.ndarray  # int32[B, 3]
 
+    @property
+    def n_lanes(self) -> int:
+        return int(self.meta[-1, 2] + self.meta[-1, 3])
+
 
 def _work_rows(kind: int, first: int, count: int, per: int) -> np.ndarray:
     starts = np.arange(first, first + count, per)
@@ -589,10 +695,7 @@ def _prepare(parts: list) -> Prepared:
     lanes = _lanes_np(lens)
     lane0 = np.cumsum(lanes) - lanes
     meta = np.stack([offs, lens, lanes, lane0], axis=1)
-    n_chunks = -(-lens // _CHUNK)
-    c_part = np.repeat(np.arange(len(lens)), n_chunks)
-    c_start = (np.arange(len(c_part)) - np.repeat(np.cumsum(n_chunks) - n_chunks, n_chunks))
-    chunks = np.stack([c_part, c_start * _CHUNK], axis=1)
+    chunks = _chunk_rows(lens)
     groups = (np.flatnonzero(lanes >= 256), np.flatnonzero((lanes == 8) | (lanes == 64)),
               np.flatnonzero(lanes == 1))
     first = np.cumsum([0] + [len(g) for g in groups])
@@ -614,7 +717,15 @@ def _upload(prep: Prepared, dev: torch.device):
 
 
 def _download(out: torch.Tensor, blob_off: torch.Tensor):
-    return out.cpu().numpy(), blob_off.cpu().tolist()
+    """The offsets (the flush's one sync), then the blobs' bytes alone.
+    Raises where the card refused the flush: blob_off[-1] is -1 (a chunk
+    list that ``rans_write`` found not to be ``_prepare``'s) or past the
+    buffer (a part without valid tables, from ``rans_tables``)."""
+    offs = blob_off.cpu().tolist()
+    _require(0 <= offs[-1] <= out.numel(),
+             "the flush failed on the card: its chunk list is not _prepare's "
+             f"(blob_off[-1] = {offs[-1]}, buffer {out.numel()} bytes)")
+    return out[: offs[-1]].cpu().numpy(), offs
 
 
 def _slice(flat: np.ndarray, blob_off: list) -> list[bytes]:
@@ -630,7 +741,8 @@ def encode_batch(payloads: list, device="cuda") -> list[bytes]:
     live = [i for i, p in enumerate(payloads) if len(p)]
     if not live:
         return out
-    blobs = _slice(*_download(*code_flush(*_upload(_prepare([payloads[i] for i in live]), dev))))
+    prep = _prepare([payloads[i] for i in live])
+    blobs = _slice(*_download(*code_flush(*_upload(prep, dev), n_lanes=prep.n_lanes)))
     for i, blob in zip(live, blobs):
         out[i] = blob
     return out

@@ -2,6 +2,8 @@
 """Quickest proof that the PyTorch / CUDA port (agc_tpu_torch) runs on a GPU.
 
     python3 chip_smoke.py          # from the repository root, one CUDA card
+    python3 chip_smoke.py --rans-only   # phases 1-2, the rANS kernels' checks
+                                        # and their timing on a synthetic flush
 
 Phases (any failure exits non-zero before the result line):
 
@@ -43,15 +45,23 @@ Phases (any failure exits non-zero before the result line):
    dispatch shape of a whole-genome prepass (1024 pairs x 16,384 probe
    blocks, bank rows of 65,536 slots); the match layer's torch-op programs
    (segment rows, slot tables, split search, anchor join and select) timed
-   at their shapes; the flush coder's three kernels, rans_tables (counts
-   and quantized frequencies), rans_encode (every lane of every part) and
-   rans_write (the blobs), on hard payloads in one flush that holds all
-   five lane tiers (agc_tpu's entropy cases, each tier's edges, last rows
-   partly inactive, rare symbols of frequency 1, a raw escape, every
-   symbol once, a dominant symbol among 255 rare ones, 300 one-lane parts,
-   a fuzz), each against its plain version on the card, the tables against
-   quantize_freqs and the blobs against the host native coder, and
-   rans_decode on each coded blob against its plain version and the input;
+   at their shapes; the flush coder's four kernels, rans_tables (counts
+   and quantized frequencies), rans_encode (every lane of every part),
+   rans_layout (the blobs' sizes and offsets) and rans_write (the blobs),
+   on hard payloads in one flush that holds all five lane tiers (agc_tpu's
+   entropy cases, each tier's edges, last rows partly inactive, rare
+   symbols of frequency 1, a raw escape, every symbol once, a dominant
+   symbol among 255 rare ones, 300 one-lane parts, a fuzz, raw escapes
+   whose sources and destinations take all 16 alignments with 1- to 4-byte
+   length varints, raw and coded parts across 64 KB chunks), each against
+   its plain version on the card, the tables against quantize_freqs and
+   the blobs against the host native coder, the whole flush (code_flush)
+   once more with any host sync before its download an error, chunk lists
+   that are not _prepare's (an entry dropped, repeated, moved or cut off,
+   given to the tables or to the writer alone) refused at the download
+   with the flush after them still right, rans_encode without its lane
+   count refused, and rans_decode on each coded blob against its plain
+   version and the input;
 4. the main path: a chr-scale create (one 64 Mbase reference contig with
    repeat families + 2 resequenced samples, default parameters) through
    agc_tpu_torch.core.compressor.create_archive(device="cuda"), with the
@@ -122,12 +132,16 @@ Phases (any failure exits non-zero before the result line):
    phase 7 input with --profile tpu-rans on the card: wall, Mbases/s,
    stage timers, flushes, parts and payload bytes, the flushes' seconds
    split into host preparation, upload, code (rans_tables + rans_encode +
-   rans_write on the card), download and slice (the stages of
-   ops/device_rans.py wrapped with timers), launch counts; every blob of
+   rans_layout + rans_write on the card), download and slice (the stages
+   of ops/device_rans.py wrapped with timers), launch counts; every blob of
    the run against the host native coder on its payload, every part's
    tables against quantize_freqs, up to 4096 coded blobs decoded on the
    card through decompress_device, the kernels timed at the largest
-   flush's shape beside the host coder on the same flush, every sample extracted
+   flush's shape (each call with CUDA events and split by torch.profiler
+   into its kernels and torch ops, a call's kernel time only where every
+   kernel it launches was recorded; the flush once more with any host sync
+   before its download an error, its blobs equal to the create's) beside
+   the host coder on the same flush, every sample extracted
    byte-equal; phase 4's input with the card's coder and with the host
    coder (archives equal part for part); phase 6's collection, create and
    then append, on the card and on the CPU (plain versions, in a process
@@ -1339,39 +1353,51 @@ def match_layer(np, torch, ck, cm, M, tk, cmod, Compressor, CompressorParams, cr
 # renorm tests, the multiply-high and shift, the state update), decode ~10
 # a symbol, 3 more a stream byte (store or load, shift, count); the tables
 # 2 a symbol (its histogram count) and 16 a table entry a part (quantize
-# and reciprocal). PR 8 counted 27 a symbol for the encode with the
-# runtime division (~17 of them).
+# and reciprocal); the layout 2 a frequency and 8 a lane (varint lengths,
+# sums, the lane scan). The first port of the encode counted 27 a symbol,
+# with the runtime division (~17 of them).
 RANS_ENCODE_OPS = 12
 RANS_ENCODE_OPS_PR8 = 27
 RANS_DECODE_OPS = 10
 RANS_BYTE_OPS = 3
 RANS_HIST_OPS = 2
 RANS_TABLE_OPS = 16 * 256
+RANS_LAYOUT_OPS = 2 * 256
+RANS_LANE_OPS = 8
 
 
 def rans_bounds(n_sym: int, n_coded: int, n_stream: int, n_blob: int, n_raw: int,
-                n_parts: int, n_lanes: int) -> dict:
-    """Bounds of a flush of n_parts parts and n_sym symbols (n_coded of them
-    in parts that are coded, n_raw in raw escapes), whose coded parts'
-    streams hold n_stream bytes and whose blobs n_blob bytes, each input
-    read once and each output written once: rans_tables reads the symbols
-    and writes 1 KB of frequencies and 2 KB of table a part; rans_encode
-    reads the symbols and the tables and writes 8 bytes a lane; rans_write
-    reads the coded symbols, their tables and 8 bytes a lane and the raw
-    payloads, and writes the blobs, coding the coded symbols; the flush as
+                n_parts: int, n_lanes: int, n_coded_parts: int, n_coded_lanes: int) -> dict:
+    """Bounds of a flush of n_parts parts, n_lanes lanes and n_sym symbols
+    (n_coded of them in the n_coded_parts parts, of n_coded_lanes lanes,
+    that are coded, n_raw in raw escapes), whose coded parts' streams hold
+    n_stream bytes and whose blobs n_blob bytes, each input read once and
+    each output written once: rans_tables reads the symbols and writes 1 KB
+    of frequencies and 2 KB of table a part; rans_encode reads the symbols
+    and the tables and writes 8 bytes a lane; rans_write reads every part's
+    meta row and 1 KB of frequencies and every lane's 4-byte count (its
+    layout), the coded parts' symbols, 2 KB of table a coded part and 4
+    bytes of state a coded lane, and the raw payloads, and writes the
+    blobs, coding the coded symbols; the flush as
     one function reads the symbols and writes the blobs, coding every
-    symbol once. 'encode_pr8' is PR 8's count of its encode (27 operations
-    a symbol, its streams written, 1 KB a part)."""
+    symbol once; rans_layout reads a meta row, 1 KB of frequencies a part
+    and 4 bytes a lane, and writes 16 bytes a part and 8 a lane.
+    'encode_pr8' is the first port's count of the encode (27 operations a
+    symbol, its streams written, 1 KB a part)."""
     tables = bound(n_sym + 3072 * n_parts, RANS_HIST_OPS * n_sym + RANS_TABLE_OPS * n_parts)
     encode = bound(n_sym + 2048 * n_parts + 8 * n_lanes, RANS_ENCODE_OPS * n_sym)
-    write = bound(n_coded + n_raw + 3072 * n_parts + 8 * n_lanes + n_blob,
+    write = bound(n_coded + n_raw + 1056 * n_parts + 4 * n_lanes + 2048 * n_coded_parts
+                  + 4 * n_coded_lanes + n_blob,
                   RANS_ENCODE_OPS * n_coded + RANS_BYTE_OPS * (n_stream + n_raw))
     flush = bound(n_sym + 32 * n_parts + n_blob,
                   (RANS_HIST_OPS + RANS_ENCODE_OPS) * n_sym + RANS_TABLE_OPS * n_parts
                   + RANS_BYTE_OPS * (n_stream + n_raw))
     encode_pr8 = bound(n_sym + n_stream + 1024 * n_parts + 8 * n_lanes,
                        RANS_ENCODE_OPS_PR8 * n_sym + RANS_BYTE_OPS * n_stream)
-    return dict(tables=tables, encode=encode, write=write, flush=flush, encode_pr8=encode_pr8)
+    layout = bound(1072 * n_parts + 12 * n_lanes,
+                   RANS_LAYOUT_OPS * n_parts + RANS_LANE_OPS * n_lanes)
+    return dict(tables=tables, encode=encode, layout=layout, write=write, flush=flush,
+                encode_pr8=encode_pr8)
 
 
 def rans_decode_bound(n_sym: int, n_stream: int, n_lanes: int) -> tuple[float, str]:
@@ -1387,7 +1413,10 @@ def rans_cases(np) -> list:
     renorms), a single symbol (no emission), a raw escape, the
     quantization's edges (every symbol once, a dominant symbol among 255
     rare ones: many passes of -1), more 1-lane parts than a work row of
-    256, and a fuzz."""
+    256, a fuzz; raw escapes of random lengths (sources and destinations at
+    every alignment mod 16), with 1- to 4-byte length varints (n on both
+    sides of 128, 16384 and 2^21), and raw and coded parts that straddle
+    64 KB chunks."""
     rng = np.random.default_rng(SEED + 11)
 
     def sym(alpha: int, n: int) -> bytes:
@@ -1407,7 +1436,25 @@ def rans_cases(np) -> list:
     cases.append(dominant.tobytes())
     cases += [sym(int(rng.integers(1, 5)), int(rng.integers(1, 64))) for _ in range(300)]
     cases += [sym(int(rng.integers(1, 257)), int(rng.integers(1, 300_000))) for _ in range(10)]
+    cases += [sym(256, int(n)) for n in rng.integers(40, 3000, 48)]
+    cases += [sym(256, n) for n in (127, 128, 16383, 16384, (1 << 21) - 1, (1 << 21) + 37,
+                                    3 * 65536 + 5)]
+    cases.append(sym(4, 2 * 65536 + 77))
     return cases
+
+
+def without_sync(torch, fn):
+    """fn under torch.cuda.set_sync_debug_mode("error"): any call in it that
+    waits on the card (a .item(), a .cpu(), a size read back) raises. The
+    mode is the process's, so this wraps only calls made while no other
+    thread uses the card."""
+    def call(*args, **kw):
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            return fn(*args, **kw)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    return call
 
 
 def rans_kernels(np, torch, D, E, dev, results) -> None:
@@ -1429,16 +1476,40 @@ def rans_kernels(np, torch, D, E, dev, results) -> None:
                                                         minlength=256)) for c in live])
     check((freqs.cpu().numpy() == host_freqs.astype(np.int64)).all(),
           "rans_tables' frequencies differ from quantize_freqs")
-    counts, states = D.rans_encode(data, meta, enc, sel, work)
+    counts, states = D.rans_encode(data, meta, enc, sel, work, prep.n_lanes)
     p_counts, p_states = D.rans_encode_plain(data, meta, enc)
     enc_err = max(max_abs_err(torch, counts, p_counts), max_abs_err(torch, states, p_states))
     check(enc_err == 0, f"rans_encode disagrees with its plain version ({enc_err})")
+    layout = D.rans_layout(meta, freqs, counts)
+    want_layout = D.blob_offsets(meta, freqs, counts)
+    lay_err = max(max_abs_err(torch, a, b) for a, b in zip(layout, want_layout))
+    check(lay_err == 0, f"rans_layout disagrees with blob_offsets ({lay_err})")
     out, blob_off = D.rans_write(data, meta, chunks, sel, work, freqs, enc, counts, states)
     want_out = D.rans_write_plain(data, meta, freqs, enc, counts, states, blob_off)
-    wr_err = max_abs_err(torch, out, want_out)
+    check(out.numel() >= want_out.numel(), "rans_write's buffer is smaller than its blobs")
+    wr_err = max(max_abs_err(torch, out[: want_out.numel()], want_out),
+                 max_abs_err(torch, blob_off, want_layout[0]))
     check(wr_err == 0, f"rans_write disagrees with its plain version ({wr_err})")
+    want_blobs = [E.compress(c) for c in live]
     blobs = D._slice(*D._download(out, blob_off))
-    check(blobs == [E.compress(c) for c in live], "the card's blobs differ from the host coder's")
+    check(blobs == want_blobs, "the card's blobs differ from the host coder's")
+    # the raw escapes' copies at every alignment, every length varint width
+    raw = (want_layout[1] < 0).cpu().numpy()
+    lens = prep.meta[:, 1]
+    heads = np.array([2 + E._varint_len(int(n)) for n in lens])
+    src = set((prep.meta[raw, 0] % 16).tolist())
+    dst = set(((blob_off[:-1].cpu().numpy() + heads)[raw] % 16).tolist())
+    widths = {E._varint_len(int(n)) for n in lens[raw]}
+    check(src == dst == set(range(16)) and widths == {1, 2, 3, 4}
+          and (lens[raw] > D._CHUNK).any() and (lens[~raw] > D._CHUNK).any(),
+          f"the raw escapes cover sources {sorted(src)}, destinations {sorted(dst)} mod 16, "
+          f"length varints {sorted(widths)}")
+    # the whole flush with no host sync until its download
+    flush = without_sync(torch, D.code_flush)(data, meta, chunks, sel, work, prep.n_lanes)
+    check(D._slice(*D._download(*flush)) == want_blobs,
+          "code_flush under the sync check differs from the host coder")
+    n_bad = rans_refusals(np, torch, D, prep, data, meta, chunks, sel, work, freqs, enc, counts,
+                          states, want_blobs)
     check(D.encode_batch(cases, dev) == [E.compress(c) for c in cases],
           "encode_batch differs from the host coder")
     dec_err, n_dec = 0, 0
@@ -1453,26 +1524,109 @@ def rans_kernels(np, torch, D, E, dev, results) -> None:
               f"rans_decode of a {len(c)}-byte blob disagrees ({e})")
         dec_err, n_dec = max(dec_err, e), n_dec + 1
     n_raw = sum(bool(b[1] & E._RAW_FLAG) for b in blobs)
-    print(f"rans_tables / rans_encode / rans_write: {len(live)} parts of {len(prep.data)} bytes "
-          f"in one flush (lane tiers {tiers}, {len(prep.work)} encode blocks, {n_raw} raw "
-          f"escapes), max_abs_err {tab_err} / {enc_err} / {wr_err}, tables equal to "
-          f"quantize_freqs, every blob equal to the host coder's; rans_decode: {n_dec} blobs "
-          f"decoded to their inputs, max_abs_err {dec_err}")
+    print(f"rans_tables / rans_encode / rans_layout / rans_write: {len(live)} parts of "
+          f"{len(prep.data)} bytes in one flush (lane tiers {tiers}, {len(prep.work)} encode "
+          f"blocks, {n_raw} raw escapes: sources and destinations at all 16 alignments, "
+          f"length varints of 1-4 bytes), max_abs_err {tab_err} / {enc_err} / {lay_err} / "
+          f"{wr_err}, tables equal to quantize_freqs, every blob equal to the host coder's, "
+          f"code_flush with no host sync, {n_bad} malformed chunk lists refused and the flush "
+          f"after each right, rans_encode without its lane count refused; "
+          f"rans_decode: {n_dec} blobs decoded to their inputs, "
+          f"max_abs_err {dec_err}")
     for name, replaces, err in (
             ("rans_tables", "agc_tpu/ops/device_rans.py:242", tab_err),
             ("rans_encode", "agc_tpu/ops/device_rans.py:143", enc_err),
+            ("rans_layout", "agc_tpu/ops/device_rans.py:266", lay_err),
             ("rans_write", "agc_tpu/ops/device_rans.py:266", wr_err),
             ("rans_decode", "agc_tpu/ops/device_rans.py:277", dec_err)):
         results[name] = dict(source="agc_tpu_torch/csrc/rans.cu", replaces=replaces,
                              max_abs_err=err, library_ms=None)
 
 
-def rans_timing(np, torch, D, E, dev, results, card, payloads: list, blob: bytes) -> None:
-    """The kernels at the shape of the largest flush: rans_tables,
-    rans_encode and rans_write over its parts, the three as the flush
-    (code_flush), rans_decode of the run's largest coded blob (raw escapes
-    are not decoded); the flush through encode_batch on the card and
-    through the host native coder."""
+def rans_refusals(np, torch, D, prep, data, meta, chunks, sel, work, freqs, enc, counts, states,
+                  want_blobs) -> int:
+    """Chunk lists that are not _prepare's, on the card: each through
+    code_flush (the tables take it) and through rans_write alone (the
+    tables take the right one) must be refused at the download, and the
+    right flush after each must give the host coder's blobs (the scratch
+    left zero); rans_encode without its lane count must raise. Returns the
+    number of lists."""
+    good = prep.chunks
+    multi = int(np.flatnonzero(good[1:, 0] == good[:-1, 0])[0]) + 1  # a part's 2nd chunk
+    bad = {"an entry dropped": np.delete(good, multi, axis=0),
+           "an entry repeated": np.insert(good, multi, good[multi], axis=0),
+           "two entries swapped": good[np.r_[0:multi - 1, multi, multi - 1, multi + 1:len(good)]],
+           "a start moved by 16 bytes": np.where(np.arange(len(good))[:, None] == multi,
+                                                 good + [0, 16], good),
+           "the last entry cut off": good[:-1],
+           "an entry past the parts": np.vstack([good, [len(prep.meta), 0]])}
+    for what, rows in bad.items():
+        rows = torch.from_numpy(np.ascontiguousarray(rows)).to(data.device)
+        for whose, run in (
+                ("code_flush", lambda: D.code_flush(data, meta, rows, sel, work, prep.n_lanes)),
+                ("rans_write", lambda: D.rans_write(data, meta, rows, sel, work, freqs, enc,
+                                                    counts, states))):
+            try:
+                D._download(*run())
+            except ValueError:
+                pass
+            else:
+                check(False, f"{whose} took a chunk list with {what}")
+            got = D.code_flush(data, meta, chunks, sel, work, prep.n_lanes)
+            check(D._slice(*D._download(*got)) == want_blobs,
+                  f"the flush after {whose}'s chunk list with {what} differs")
+    try:
+        D.rans_encode(data, meta, enc, sel, work)
+    except ValueError:
+        pass
+    else:
+        check(False, "rans_encode ran on the card without its lane count")
+    return len(bad)
+
+
+def rans_split(torch, calls: dict, reps: int = 5, tries: int = 4) -> dict:
+    """Each call's time split by torch.profiler into the device activities it
+    launches (its kernels, and any memset or copy), ms a call: {call: {name:
+    ms}}; calls: {call: (fn, the kernels it launches)}. The profiler drops
+    a window's device events at times, after earlier profiler runs in the
+    process, so a window that misses any of the call's kernels is run
+    again, up to `tries` times ("tries" says how many it took); a call
+    whose kernels never all showed is None."""
+    act = torch.profiler.ProfilerActivity
+    split = {}
+    for name, (fn, kernels) in calls.items():
+        fn()
+        torch.cuda.synchronize()
+        got = None
+        for n_try in range(1, tries + 1):
+            with torch.profiler.profile(activities=[act.CPU, act.CUDA]) as prof:
+                for _ in range(reps):
+                    fn()
+                torch.cuda.synchronize()
+            by_name = device_time(torch, prof)[1]
+            del prof
+            acts = {kernel_name(k): ms / reps for k, ms in by_name.items()}
+            if all(k in acts for k in kernels):
+                got = {**acts, "tries": n_try}
+                break
+        split[name] = got
+    return split
+
+
+def opt_ms(v) -> str:
+    return "not recorded" if v is None else f"{v:.4f}"
+
+
+def rans_timing(np, torch, D, E, dev, results, card, payloads: list, blobs: list,
+                blob: bytes) -> None:
+    """The kernels at the shape of the largest flush (its payloads and the
+    blobs the card gave them): rans_tables, rans_encode, rans_layout and
+    rans_write over its parts, and the four as the flush (code_flush), each
+    whole call timed with CUDA events and split by torch.profiler into its
+    kernels and torch ops; the flush once more with no host sync allowed
+    until its download, its blobs equal to the given ones; rans_decode of
+    the run's largest coded blob (raw escapes are not decoded); the flush
+    through encode_batch on the card and through the host native coder."""
     t0 = time.perf_counter()
     D.encode_batch(payloads, dev)
     card_s = time.perf_counter() - t0
@@ -1483,26 +1637,33 @@ def rans_timing(np, torch, D, E, dev, results, card, payloads: list, blob: bytes
     live = [p for p in payloads if p]
     prep = D._prepare(live)
     data, meta, chunks, sel, work = D._upload(prep, dev)
+    n_lanes = prep.n_lanes
+    flush = without_sync(torch, D.code_flush)(data, meta, chunks, sel, work, n_lanes)
+    check(D._slice(*D._download(*flush)) == [b for p, b in zip(payloads, blobs) if p],
+          "the largest flush under the sync check differs from the create's blobs")
     freqs, enc = D.rans_tables(data, meta, chunks)
-    counts, states = D.rans_encode(data, meta, enc, sel, work)
+    counts, states = D.rans_encode(data, meta, enc, sel, work, n_lanes)
     out, blob_off = D.rans_write(data, meta, chunks, sel, work, freqs, enc, counts, states)
     _boff, stream_at, lane_cs = D.blob_offsets(meta, freqs, counts)
     lens = meta[:, 1]
     coded = stream_at >= 0
     n_coded = int(lens[coded].sum())
+    n_coded_lanes = int(meta[:, 2][coded].sum())
     n_raw = int(lens.sum()) - n_coded
     part_bytes = lane_cs[meta[:, 3] + meta[:, 2]] - lane_cs[meta[:, 3]]
     n_stream = int(part_bytes[coded].sum())
-    b = rans_bounds(int(lens.sum()), n_coded, n_stream, out.numel(), n_raw, len(live),
-                    counts.numel())
+    n_blob = int(blob_off[-1])
+    b = rans_bounds(int(lens.sum()), n_coded, n_stream, n_blob, n_raw, len(live), n_lanes,
+                    int(coded.sum()), n_coded_lanes)
     shape = (f"the largest flush: {len(live)} parts ({int(coded.sum())} coded), "
-             f"{int(lens.sum())} bytes, {counts.numel()} lanes, {out.numel()} blob bytes "
-             f"({n_raw} raw)")
+             f"{int(lens.sum())} bytes, {n_lanes} lanes, {n_blob} blob bytes ({n_raw} raw)")
     runs = {
         "rans_tables": (lambda: D.rans_tables(data, meta, chunks),
                         lambda: D.rans_tables_plain(data, meta), b["tables"]),
-        "rans_encode": (lambda: D.rans_encode(data, meta, enc, sel, work),
+        "rans_encode": (lambda: D.rans_encode(data, meta, enc, sel, work, n_lanes),
                         lambda: D.rans_encode_plain(data, meta, enc), b["encode"]),
+        "rans_layout": (lambda: D.rans_layout(meta, freqs, counts),
+                        lambda: D.blob_offsets(meta, freqs, counts), b["layout"]),
         "rans_write": (lambda: D.rans_write(data, meta, chunks, sel, work, freqs, enc, counts,
                                             states),
                        lambda: D.rans_write_plain(data, meta, freqs, enc, counts, states,
@@ -1515,10 +1676,32 @@ def rans_timing(np, torch, D, E, dev, results, card, payloads: list, blob: bytes
         r["bound"] = bnd
         r["shape"] = shape
     re = results["rans_encode"]
-    re["flush_ms"] = cuda_ms(torch, lambda: D.code_flush(data, meta, chunks, sel, work), 5)
+    flush_fn = lambda: D.code_flush(data, meta, chunks, sel, work, n_lanes)  # noqa: E731
+    re["flush_ms"] = cuda_ms(torch, flush_fn, 5)
     re["flush_bound_ms"] = b["flush"][0]
     re["flush_bound_by"] = b["flush"][1]
     re["old_count_bound_ms"] = b["encode_pr8"][0]
+    kernels = {"rans_tables": ("rans_hist_kernel", "rans_quantize_kernel"),
+               "rans_encode": ("rans_encode_kernel",), "rans_layout": ("rans_layout_kernel",),
+               "rans_write": ("rans_layout_kernel", "rans_write_kernel", "rans_streams_kernel")}
+    kernels["code_flush"] = tuple(dict.fromkeys(k for v in kernels.values() for k in v))
+    split = rans_split(torch, {name: (fn, kernels[name]) for name, fn in
+                               [*((n, fn) for n, (fn, _p, _b) in runs.items()),
+                                ("code_flush", flush_fn)]})
+
+    def kernels_ms(name):  # None where the profiler did not record them all
+        return split[name] and sum(split[name][k] for k in kernels[name])
+
+    for name in runs:
+        results[name]["kernel_ms"] = kernels_ms(name)
+    re["flush_kernel_ms"] = kernels_ms("code_flush")
+    print("rANS calls split by torch.profiler (device ms a call; the call's CUDA-event ms "
+          f"beside it; {card}): " + "; ".join(
+              f"{name} {results[name]['ms'] if name in results else re['flush_ms']:.4f}: "
+              + (", ".join(f"{k} {ms:.4f}" if k != "tries" else f"{k} {ms}"
+                           for k, ms in sorted(acts.items(), key=lambda kv: -kv[1]))
+                 if acts else "its kernels not all recorded")
+              for name, acts in split.items()))
     dargs = D.blob_tensors(blob, dev)
     n = dargs[4]
     rd = results["rans_decode"]
@@ -1527,14 +1710,39 @@ def rans_timing(np, torch, D, E, dev, results, card, payloads: list, blob: bytes
     rd["bound"] = rans_decode_bound(n, dargs[0].numel(), dargs[2].numel())
     rd["shape"] = f"the largest coded blob: {n} symbols, {dargs[2].numel()} lanes"
     print(f"rANS over {shape}: " + "; ".join(
-        f"{name} {results[name]['ms']:.4f} ms (bound {results[name]['bound'][0]:.4f} ms, "
-        f"{results[name]['bound'][1]}), plain {results[name]['plain_ms']:.4f} ms"
-        for name in runs) + f"; the three as the flush (code_flush) {re['flush_ms']:.4f} ms "
-        f"(bound {re['flush_bound_ms']:.4f} ms, {re['flush_bound_by']}); rans_encode under PR "
-        f"8's count: bound {re['old_count_bound_ms']:.4f} ms; rans_decode of {n} symbols: "
+        f"{name} {results[name]['ms']:.4f} ms, kernels {opt_ms(results[name]['kernel_ms'])} ms "
+        f"(bound {results[name]['bound'][0]:.4f} ms, {results[name]['bound'][1]}), plain "
+        f"{results[name]['plain_ms']:.4f} ms" for name in runs)
+        + f"; the four as the flush (code_flush) {re['flush_ms']:.4f} ms, kernels "
+        f"{opt_ms(re['flush_kernel_ms'])} ms (bound {re['flush_bound_ms']:.4f} ms, "
+        f"{re['flush_bound_by']}); rans_encode under the 27-operation count: bound "
+        f"{re['old_count_bound_ms']:.4f} ms; rans_decode of {n} symbols: "
         f"{rd['ms']:.4f} ms (bound {rd['bound'][0]:.4f} ms), plain {rd['plain_ms']:.4f} ms; "
         f"the flush through encode_batch on the card {card_s:.4f} s, through the host native "
         f"coder {host_s:.4f} s ({card})")
+
+
+def synthetic_flush(np) -> list:
+    """A flush of the shape of phase 10's largest: 11,492 parts of random
+    bytes, ~172 MB, all raw escapes."""
+    rng = np.random.default_rng(SEED + 12)
+    return [rng.integers(0, 256, int(n), dtype=np.uint8).tobytes()
+            for n in rng.integers(1, 30_016, 11_492)]
+
+
+def rans_only(np, torch, D, E, dev, card) -> None:
+    """--rans-only: phase 3's rANS checks, then rans_timing on the synthetic
+    flush, its blobs checked against the host coder's: a short chip call
+    after a change to csrc/rans.cu."""
+    results = {}
+    rans_kernels(np, torch, D, E, torch.device(DEVICE), results)
+    rng = np.random.default_rng(SEED + 13)
+    payloads = synthetic_flush(np)
+    blobs = D.encode_batch(payloads, dev)
+    check(blobs == [E.compress(p) for p in payloads],
+          "the synthetic flush's blobs differ from the host coder's")
+    coded = E.compress(rng.integers(0, 4, 1 << 20, dtype=np.uint8).tobytes())
+    rans_timing(np, torch, D, E, dev, results, card, payloads, blobs, coded)
 
 
 def rans_phase(np, torch, ck, D, E, CompressorParams, create_archive, append_archive,
@@ -1590,7 +1798,7 @@ def rans_phase(np, torch, ck, D, E, CompressorParams, create_archive, append_arc
             setattr(D, name, fn)
         E.compress_parts = real_parts
         D.rans_tables = real_tables
-    for name in ("rans_tables", "rans_encode", "rans_write"):
+    for name in ("rans_tables", "rans_encode", "rans_layout", "rans_write"):
         check(launches[name] > 0, f"the tpu-rans create never launched {name}")
         results[name]["launches"] = launches[name]
     check(len(tables) == len(flushes), "a flush did not go through rans_tables")
@@ -1605,7 +1813,7 @@ def rans_phase(np, torch, ck, D, E, CompressorParams, create_archive, append_arc
           f"bytes; largest flush {len(payloads)} parts, {sum(map(len, payloads))} bytes; "
           f"launches {launches}")
     print("tpu-rans flush split (s, summed over flushes; code = rans_tables + rans_encode + "
-          "rans_write): " + json.dumps(
+          "rans_layout + rans_write): " + json.dumps(
         {k: round(v, 4) for k, v in split.items()}) + f" = {sum(split.values()):.4f} s")
     print("tpu-rans stage timers (s): " + json.dumps(
         {n: round(t, 4) for n, t in sorted(timers.times.items(), key=lambda kv: -kv[1])}))
@@ -1643,7 +1851,7 @@ def rans_phase(np, torch, ck, D, E, CompressorParams, create_archive, append_arc
           "decompress_device does not give the parts' payloads")
     print(f"decompress_device: {len(back)} of the run's {len(coded)} coded blobs decoded on the "
           f"card to their payloads ({results['rans_decode']['launches']} rans_decode launches)")
-    rans_timing(np, torch, D, E, torch.device(DEVICE), results, card, payloads,
+    rans_timing(np, torch, D, E, torch.device(DEVICE), results, card, payloads, blobs,
                 max(coded, key=lambda pb: len(pb[0]))[1])
     del flushes, pairs, payloads, blobs, back, coded
     t0 = time.perf_counter()
@@ -1746,6 +1954,10 @@ def main() -> int:
         print(f"phase {phase} done at {time.perf_counter() - started:.1f} s", flush=True)
 
     stamp("1-2")
+    if sys.argv[1:] == ["--rans-only"]:
+        rans_only(np, torch, D, E, dev, card)
+        print(f"chip_smoke.py --rans-only: {time.perf_counter() - started:.1f} s")
+        return 0
 
     # -- 3. kernels against their plain versions ---------------------------
     n_scan = N_SCAN
@@ -2386,7 +2598,7 @@ def main() -> int:
          "bound_by": r["bound"][1], "library_ms": r["library_ms"],
          **{key: v for key, v in r.items()
             if key.startswith(("whole_genome", "chr_scale", "large_table", "member_",
-                               "adaptive_", "anchor_", "old_count_", "flush_"))}}
+                               "adaptive_", "anchor_", "old_count_", "flush_", "kernel_ms"))}}
         for name, r in results.items()
     ]
     for name, r in results.items():
