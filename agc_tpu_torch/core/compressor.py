@@ -55,7 +55,7 @@ from .genome_io import (
 from .segment import SegmentWriter, _zstd_level
 from ..ops import match as _match
 from ..ops import resolve_device, u64
-from ..ops.cuda_kmers import isin_sorted, kmer_canon, walk_index
+from ..ops.cuda_kmers import isin_sorted, kmer_canon, set_table, walk_index
 from ..ops.kmers import (
     DaemonPool,
     ScanBatcher,
@@ -815,7 +815,7 @@ class Compressor:
     def _fallback_discovery(self, contigs: list) -> None:
         """-f discovery over the full pool on the device: one kmer_canon
         launch, one sort, the candidate tables, then per contig the dense
-        scan against the singleton table (kmer_dir_rc with its walk index)
+        scan against the singleton table (kmer_dir_rc with its set_table)
         and the host greedy walk that collects the fallback records
         (agc_tpu's _set_candidates + _find_splitters_in_contig path)."""
         with self.timers.stage("disc_collect"):
@@ -828,13 +828,14 @@ class Compressor:
         with self.timers.stage("disc_tables"):
             singles, dups = candidate_tables(pool)
             del pool
-            index = walk_index(singles)
+            index = set_table(singles)
         self._set_tables(singles, dups)
         self._walk_candidates(contigs, index)
 
     def _walk_candidates(self, contigs: list, index) -> None:
         """Splitters and fallback records of every reference contig from
-        its dense scan against the singleton table's walk ``index``."""
+        its dense scan against the singleton table's ``index``
+        (``set_table``)."""
         splitters: list[int] = []
         with self.timers.stage("disc_greedy"):
             for codes in contigs:
@@ -951,7 +952,7 @@ class Compressor:
             singles = u64.from_u64(uniqs[counts == 1], self.device)
             self._set_tables(singles, u64.from_u64(uniqs[counts > 1], self.device))
             del uniqs, counts
-            index = walk_index(singles)
+            index = set_table(singles)
         self._walk_candidates(contigs, index)
 
     def _sampled_emissions(self, contigs: list, total: int) -> list:
@@ -1038,8 +1039,7 @@ class Compressor:
         over the dense scan of the contig (reference:
         find_splitters_in_contig, agc_compressor.cpp:762-825).
 
-        ``index``: the walk_index of the sorted candidate table (each value
-        once). Returns (splitters, fallback-records (prev, cur, kmer,
+        ``index``: the set_table of the sorted candidate table. Returns (splitters, fallback-records (prev, cur, kmer,
         is_dir))."""
         n = len(codes)
         if n < self.k:
@@ -1326,6 +1326,13 @@ class Compressor:
         if prev_si is not None:
             self._synchronize()
         return True
+
+    def add_sample_file(self, path: str, sample_name: str | None = None) -> bool:
+        """One sample file, named from its path unless ``sample_name`` is
+        given (agc_tpu's ``Compressor.add_sample_file``)."""
+        if sample_name is None:
+            sample_name = sample_name_from_path(path)
+        return self.add_sample_files([(sample_name, path)])
 
     def _synchronize(self) -> None:
         """Per-sample barrier: new-splitter merge (adaptive), registration,
@@ -1614,7 +1621,8 @@ class Compressor:
         duplicates go by ``searchsorted`` against the candidate tables;
         one greedy_walk launch over the walk_index of what is left (a
         table that holds each value once, so the singleton walk is the
-        membership walk of agc_tpu's find_splitter_emissions)."""
+        membership walk of agc_tpu's find_splitter_emissions); under -f,
+        the dense scan against its set_table."""
         if (
             len(codes) <= self._HOST_NEW_SPLITTERS_MAX
             and not self.fallback_filter
@@ -1637,17 +1645,16 @@ class Compressor:
         uniq = uniq[~isin_sorted(uniq, self.cand_duplicated)]
         if not uniq.numel():
             return
-        index = walk_index(uniq)
         if not self.fallback_filter:
             (pos, kmers, tail_pos, tail_kmer), = find_splitter_emissions_packed(
-                canon, [(0, n)], self.k, uniq, self.p.segment_size, index=index
+                canon, [(0, n)], self.k, uniq, self.p.segment_size, index=walk_index(uniq)
             )
             self._pending_new_splitters.extend(int(x) for x in kmers)
             last = int(pos[-1]) if len(pos) else None
             if tail_pos is not None and (last is None or tail_pos >= last + self.k):
                 self._pending_new_splitters.append(int(tail_kmer))
         else:
-            found, fallbacks = self._find_splitters_in_contig(codes, index)
+            found, fallbacks = self._find_splitters_in_contig(codes, set_table(uniq))
             self._pending_new_splitters.extend(found)
             self._pending_fallback.extend(fallbacks)
 

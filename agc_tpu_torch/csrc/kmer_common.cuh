@@ -109,9 +109,8 @@ static __device__ __noinline__ bool mix_exact(const int32_t* dir, const uint32_t
 // The walk index of a set of flipped int64 codes (walk_index,
 // greedy_walk.cu): the sorted values that occur once, and a directory of
 // 2^bits + 1 offsets into them over the top `bits` bits of the unsigned
-// code. greedy_walk looks up a pool's singletons in it; kmer_dir_rc
-// (kmer_canon.cu) looks up membership in a set that holds each value once,
-// whose walk index is the whole set.
+// code. greedy_walk looks up a pool's singletons in it (kmer_dir_rc's set
+// has a table of its own, kmer_canon.cu).
 struct Singles {
   const int64_t* __restrict__ v;     // sorted flipped codes that occur once
   const uint32_t* __restrict__ dir;  // 2^bits + 1 bucket offsets into v

@@ -5,8 +5,8 @@
 // rans_encode (every lane of every part: its byte count and final state),
 // rans_layout (each part's blob size, raw or coded, and the blobs' and the
 // lanes' offsets, by one device-wide scan) and rans_write (each part's
-// whole blob, or its raw escape, at its offset); rans_decode decodes one
-// blob. Nothing of a flush goes back to the host between them: the output
+// whole blob, or its raw escape, at its offset); rans_decode decodes a
+// batch of blobs in one launch. Nothing of a flush goes back to the host between them: the output
 // buffer is sized from the flush's shapes, which bound its blobs.
 //
 // Replaces agc_tpu's XLA programs _encode_fn / _encode_batch_fn
@@ -48,8 +48,16 @@
 // gives a block 256 lanes of a large part, a warp an 8- or 64-lane part, a
 // thread a 1-lane part, 256 to a block; rans_layout and rans_write's coded
 // heads take a part a warp, and rans_write's raw payloads a 64 KB chunk a
-// block. rans_decode has no division: ~10 operations a symbol, a slot
-// table in shared memory, one thread a lane.
+// block. rans_decode has no division: ~10 operations a symbol, one thread
+// a lane, lanes independent, so its schedule (_decode_rows in
+// ops/device_rans.py) gives a block 256 lanes of a 256- or 1024-lane blob,
+// or packs up to 16 smaller blobs of one tier into a block. A blob's
+// symbol comes from its slot table in shared memory (4096 bytes, filled
+// from the cumulative frequencies, 16 slots a thread, no search a slot),
+// or else from a rank search of the cumulative frequencies (8 shared loads
+// a symbol): the schedule's table_min_lanes chooses (tables by default;
+// on an H100 they won on large batches at every tier, the rank search on
+// a small batch of short blobs).
 //
 // Scratch that rans_tables and rans_layout are given is zero when they
 // start and zero again when they end (the block that consumes a value
@@ -73,7 +81,7 @@ constexpr uint32_t kProbBits = 12;
 constexpr uint32_t kProbScale = 1u << kProbBits;
 constexpr uint32_t kRansL = 1u << 23;
 constexpr int kXMaxShift = 19;  // x_max = ((kRansL >> kProbBits) << 8) * f = f << 19
-constexpr int kThreads = 256;   // every kernel but rans_decode
+constexpr int kThreads = 256;   // threads a block of every kernel
 constexpr int kWarps = kThreads / 32;
 constexpr int kMeta = 4;        // meta row: data offset, n, lanes, first lane
 constexpr int kMaxLanes = 1024;
@@ -950,70 +958,44 @@ __global__ void __launch_bounds__(kThreads) rans_streams_kernel(
 // rans_decode
 // ---------------------------------------------------------------------------
 
-// Frequencies of one part into shared memory, with their exclusive prefix
-// sums (cum[256] = the total). Warp 0 does it: 8 entries a thread and a
-// shuffle scan of the thread sums. Every thread of the block calls it.
-__device__ __forceinline__ void load_tables(const int32_t* __restrict__ fr,
-                                            uint32_t* f_sh, uint32_t* c_sh) {
-  if (threadIdx.x < 32) {
-    const int l = threadIdx.x;
-    uint32_t v[8];
-    uint32_t sum = 0;
-#pragma unroll
-    for (int i = 0; i < 8; ++i) {
-      v[i] = static_cast<uint32_t>(fr[l * 8 + i]);
-      sum += v[i];
-    }
-    uint32_t incl = sum;
-#pragma unroll
-    for (int o = 1; o < 32; o <<= 1) {
-      const uint32_t u = __shfl_up_sync(0xffffffffu, incl, o);
-      if (l >= o) incl += u;
-    }
-    uint32_t run = incl - sum;
-#pragma unroll
-    for (int i = 0; i < 8; ++i) {
-      f_sh[l * 8 + i] = v[i];
-      c_sh[l * 8 + i] = run;
-      run += v[i];
-    }
-    if (l == 31) c_sh[256] = run;
+// rans_decode work rows: (mode, first index into sel, blobs, first lane)
+constexpr int kTableMode = 1;  // the symbol from the blob's slot table (0: by a rank search)
+constexpr int kDecodeBlobs = 16;   // blobs a rank-mode block at most
+constexpr int kDecodeTables = 4;   // blobs a table-mode block at most
+// shared words of a decode block: the rank mode's f << 16 | cum rows, or
+// the table mode's rows and 4096-byte slot tables
+constexpr int kDecodeWords = kDecodeTables * (256 + kProbScale / 4) > kDecodeBlobs * 256
+                                 ? kDecodeTables * (256 + kProbScale / 4)
+                                 : kDecodeBlobs * 256;
+constexpr int kStageBytes = 24 << 10;  // a 256-lane slice's stream bytes, staged
+
+// The number of symbols s < 255 with cum[s + 1] <= slot (agc_tpu's rank,
+// sum(cum[1:] <= slot), which cum[256] = 4096 keeps below 256). t: a
+// blob's 256 words f << 16 | cum.
+__device__ __forceinline__ int rank_of(const uint32_t* t, uint32_t slot) {
+  int lo = 0, hi = 255;
+  while (lo < hi) {
+    const int mid = (lo + hi) >> 1;
+    if ((t[mid + 1] & 0xFFFFu) <= slot) lo = mid + 1; else hi = mid;
   }
-  __syncthreads();
+  return lo;
 }
 
-// One block for a blob of L lanes, one thread a lane. lane_off: i64[L + 1]
-// offsets of the lanes' streams; a read past a lane's bytes gives 0.
-__global__ void __launch_bounds__(1024) rans_decode_kernel(
-    const uint8_t* __restrict__ stream, const int64_t* __restrict__ lane_off,
-    const int64_t* __restrict__ states, const int32_t* __restrict__ freqs,
-    int64_t n, int L, uint8_t* __restrict__ out) {
-  __shared__ uint32_t f_sh[256];
-  __shared__ uint32_t c_sh[257];
-  __shared__ uint8_t sym[kProbScale];  // slot -> symbol
-  load_tables(freqs, f_sh, c_sh);
-  for (int slot = threadIdx.x; slot < static_cast<int>(kProbScale); slot += blockDim.x) {
-    // the number of symbols s with cum[s + 1] <= slot (agc_tpu's rank)
-    int lo = 0, hi = 256;
-    while (lo < hi) {
-      const int mid = (lo + hi) >> 1;
-      if (c_sh[mid + 1] <= static_cast<uint32_t>(slot)) lo = mid + 1; else hi = mid;
-    }
-    sym[slot] = static_cast<uint8_t>(lo < 255 ? lo : 255);
-  }
-  __syncthreads();
-  const int lane = threadIdx.x;
-  if (lane >= L) return;
-  const uint8_t* src = stream + lane_off[lane];
-  const int64_t len = lane_off[lane + 1] - lane_off[lane];
-  const int64_t steps = lane < n ? (n - lane + L - 1) / L : 0;
-  uint32_t x = static_cast<uint32_t>(states[lane]);
+// One lane's symbols, written at out[t * L] (out already at the lane); a
+// read past the lane's bytes gives 0. src is in global or shared memory,
+// so its loads are generic.
+template <bool kTable>
+__device__ __forceinline__ void decode_lane(const uint8_t* __restrict__ src, int64_t len,
+                                            uint32_t x, int64_t steps, int L,
+                                            const uint32_t* t, const uint8_t* sym,
+                                            uint8_t* __restrict__ out) {
   int64_t cur = 0;
-  for (int64_t t = 0; t < steps; ++t) {
+  for (int64_t i = 0; i < steps; ++i) {
     const uint32_t slot = x & (kProbScale - 1);
-    const uint32_t s = sym[slot];
-    out[t * L + lane] = static_cast<uint8_t>(s);
-    x = f_sh[s] * (x >> kProbBits) + slot - c_sh[s];
+    const uint32_t s = kTable ? sym[slot] : static_cast<uint32_t>(rank_of(t, slot));
+    out[i * L] = static_cast<uint8_t>(s);
+    const uint32_t e = t[s];
+    x = (e >> 16) * (x >> kProbBits) + slot - (e & 0xFFFFu);
     if (x < kRansL) {  // the renorm reads at most 2 bytes
       x = (x << 8) | (cur < len ? src[cur] : 0u);
       ++cur;
@@ -1022,6 +1004,115 @@ __global__ void __launch_bounds__(1024) rans_decode_kernel(
         ++cur;
       }
     }
+  }
+}
+
+// A block a work row. Warp w loads the frequencies of blobs w, w + 8, ...
+// of the row and scans them into f << 16 | cum words (8 a lane, a shuffle
+// scan of the lane sums); in table mode the block then fills each blob's
+// 4096-slot table, a thread 16 consecutive slots: the symbol of the first
+// by rank_of, the rest by stepping past the symbols whose range ends. A
+// row of one blob (256 lanes of a large one) copies its lanes' bytes to
+// shared memory first where they fit in kStageBytes: read from global
+// memory a byte a renorm, they waited on L2 (the lanes of an SM touch
+// more lines than the L1 beside the blocks' shared memory keeps).
+// Then a blob of the row has 256 / blobs threads, one a lane. meta: i64[B,
+// 4] (n, L, first lane, output offset); a lane's bytes are read only
+// inside its lane_off range, clamped to the stream.
+__global__ void __launch_bounds__(kThreads) rans_decode_kernel(
+    const uint8_t* __restrict__ stream, int64_t n_stream, const int64_t* __restrict__ lane_off,
+    const int64_t* __restrict__ states, const int32_t* __restrict__ freqs,
+    const int64_t* __restrict__ meta, const int32_t* __restrict__ sel,
+    const int32_t* __restrict__ work, uint8_t* __restrict__ out) {
+  __shared__ __align__(16) uint32_t smem[kDecodeWords];
+  __shared__ uint8_t stage[kStageBytes];
+  __shared__ int64_t staged[2];  // the staged bytes' stream range, or -1
+  const int32_t* row = work + 4 * static_cast<int64_t>(blockIdx.x);
+  const bool table = row[0] == kTableMode;
+  const int first = row[1];
+  const int count = row[2];
+  const int lane0 = row[3];
+  if (count < 1 || count > (table ? kDecodeTables : kDecodeBlobs)) return;  // not a row of ours
+  const int warp = threadIdx.x >> 5;
+  const int l = threadIdx.x & 31;
+  for (int r = warp; r < count; r += kWarps) {
+    const int32_t* fr = freqs + 256 * static_cast<int64_t>(sel[first + r]);
+    uint32_t v[8];
+    uint32_t sum = 0;
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      v[i] = static_cast<uint32_t>(__ldg(fr + l * 8 + i));
+      sum += v[i];
+    }
+    uint32_t run = warp_incl_scan(sum) - sum;
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      smem[r * 256 + l * 8 + i] = (v[i] << 16) | (run & 0xFFFFu);
+      run += v[i];
+    }
+  }
+  if (threadIdx.x == 0) {
+    // a row of one blob (a 256-lane slice): its lanes' bytes, contiguous in
+    // the stream, go to shared memory where they fit
+    int64_t lo = -1, hi = -1;
+    if (count == 1) {
+      const int64_t* m0 = meta + 4 * static_cast<int64_t>(sel[first]);
+      const int64_t g0 = m0[2] + lane0;
+      const int64_t nl = m0[1] - lane0 < kThreads ? m0[1] - lane0 : kThreads;
+      lo = lane_off[g0];
+      hi = lane_off[g0 + nl];
+      lo = lo < 0 ? 0 : (lo > n_stream ? n_stream : lo);
+      hi = hi < lo ? lo : (hi > n_stream ? n_stream : hi);
+      if (hi - lo > kStageBytes) lo = hi = -1;
+    }
+    staged[0] = lo;
+    staged[1] = hi;
+  }
+  __syncthreads();
+  const int64_t stage_lo = staged[0], stage_hi = staged[1];
+  for (int64_t j = threadIdx.x; j < stage_hi - stage_lo; j += kThreads) {
+    stage[j] = __ldg(stream + stage_lo + j);
+  }
+  uint8_t* sym = reinterpret_cast<uint8_t*>(smem + kDecodeTables * 256);
+  if (table) {
+    for (int c = threadIdx.x; c < count * 256; c += kThreads) {
+      const uint32_t* t = smem + (c >> 8) * 256;
+      uint8_t* dst = sym + (c >> 8) * kProbScale;
+      const uint32_t slot0 = static_cast<uint32_t>(c & 255) * 16;
+      int s = rank_of(t, slot0);
+#pragma unroll
+      for (uint32_t q = 0; q < 16; ++q) {
+        while (s < 255 && (t[s + 1] & 0xFFFFu) <= slot0 + q) ++s;
+        dst[slot0 + q] = static_cast<uint8_t>(s);
+      }
+    }
+  }
+  __syncthreads();
+  const int per = kThreads / count;  // threads a blob of the row
+  const int r = threadIdx.x / per;
+  if (r >= count) return;
+  const int64_t* m = meta + 4 * static_cast<int64_t>(sel[first + r]);
+  const int64_t n = m[0];
+  const int L = static_cast<int>(m[1]);
+  const int lane = lane0 + threadIdx.x % per;
+  if (lane >= L || lane >= n) return;
+  const int64_t g = m[2] + lane;
+  int64_t start = lane_off[g], end = lane_off[g + 1];
+  start = start < 0 ? 0 : (start > n_stream ? n_stream : start);
+  end = end < start ? start : (end > n_stream ? n_stream : end);
+  const uint8_t* src = stream + start;
+  if (stage_lo >= 0) {  // read the staged copy, inside the staged range
+    start = start < stage_lo ? stage_lo : (start > stage_hi ? stage_hi : start);
+    end = end < start ? start : (end > stage_hi ? stage_hi : end);
+    src = stage + (start - stage_lo);
+  }
+  const int64_t steps = (n - lane + L - 1) / L;
+  const uint32_t x = static_cast<uint32_t>(states[g]);
+  uint8_t* dst = out + m[3] + lane;
+  if (table) {
+    decode_lane<true>(src, end - start, x, steps, L, smem + r * 256, sym + r * kProbScale, dst);
+  } else {
+    decode_lane<false>(src, end - start, x, steps, L, smem + r * 256, nullptr, dst);
   }
 }
 
@@ -1113,16 +1204,21 @@ extern "C" int agc_rans_write(const uint8_t* data, int64_t n_data, const int64_t
   return static_cast<int>(cudaGetLastError());
 }
 
-// One blob: lanes L in {1, 8, 64, 256, 1024}; states: i64[L] (u32 values);
-// freqs: i32[256]; out: u8[n].
-extern "C" int agc_rans_decode(const uint8_t* stream_bytes, const int64_t* lane_off,
-                               const int64_t* states, const int32_t* freqs,
-                               int64_t n, int lanes, uint8_t* out, void* stream) {
+// A batch of B blobs: stream: u8[n_stream], every lane's bytes; lane_off: i64[lanes + 1]; states: i64[lanes] (u32 values); freqs:
+// i32[B, 256];
+// meta: i64[B, 4] (n, L, first lane, output offset); sel: i32[B] blob
+// indices in work order; work: i32[n_work, 4] (mode, first index into sel,
+// blobs, first lane); out: the blobs' symbols at their offsets. The
+// wrapper checks meta, sel and work against each other before the launch.
+extern "C" int agc_rans_decode(const uint8_t* stream_bytes, int64_t n_stream,
+                               const int64_t* lane_off, const int64_t* states,
+                               const int32_t* freqs, const int64_t* meta, const int32_t* sel,
+                               const int32_t* work, int64_t n_work, uint8_t* out, void* stream) {
   using namespace agc::rans;
-  if (n <= 0) return 0;
-  if (lanes < 1 || lanes > 1024) return static_cast<int>(cudaErrorInvalidValue);
-  const int threads = lanes > kThreads ? lanes : kThreads;
-  rans_decode_kernel<<<1, threads, 0, static_cast<cudaStream_t>(stream)>>>(
-      stream_bytes, lane_off, states, freqs, n, lanes, out);
+  if (n_work <= 0) return 0;
+  if (n_work > INT32_MAX) return static_cast<int>(cudaErrorInvalidValue);
+  rans_decode_kernel<<<static_cast<unsigned>(n_work), kThreads, 0,
+                       static_cast<cudaStream_t>(stream)>>>(stream_bytes, n_stream, lane_off,
+                                                            states, freqs, meta, sel, work, out);
   return static_cast<int>(cudaGetLastError());
 }

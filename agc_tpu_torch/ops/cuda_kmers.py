@@ -13,7 +13,11 @@ it on the H100 and what its design does about that:
 - ``kmer_dir_rc`` (csrc/kmer_canon.cu): all of ``kmer_halves_pallas``'s
   outputs, the direct and reverse-complement codes a position, with the
   valid flag and, given a set, membership in it: the dense scan of -f
-  (agc_tpu's ``contig_kmers_dir_rc`` / ``_with_membership``).
+  (agc_tpu's ``contig_kmers_dir_rc`` / ``_with_membership``). The set is
+  looked up in a ``SetTable`` that ``set_table`` (same source) builds once
+  a set: one 32-byte bucket of four slots a lookup, a second table for what
+  the buckets spill, and a sorted tail (``set_table_plain`` /
+  ``set_lookup_plain`` are its plain model).
 - ``greedy_walk`` (csrc/greedy_walk.cu): the singleton greedy splitter
   walk; replaces the XLA ``lax.while_loop`` ``_greedy_over_canon``. Its
   lookups go through an index of the pool's singletons that
@@ -45,6 +49,7 @@ Conventions (``ops/u64.py``): k-mer codes are int64 with bit 63 flipped
 from __future__ import annotations
 
 import threading
+from dataclasses import dataclass
 
 import numpy as np
 import torch
@@ -60,7 +65,8 @@ MIX_C1 = 0x9E3779B1
 MIX_C2 = 0x85EBCA77
 _MIX_DIR_MAX_BITS = 14
 
-LAUNCHES = {"scan_fused": 0, "kmer_canon": 0, "kmer_dir_rc": 0, "walk_index": 0,
+LAUNCHES = {"scan_fused": 0, "kmer_canon": 0, "kmer_dir_rc": 0, "set_table": 0,
+            "walk_index": 0,
             "greedy_walk": 0, "member_mix": 0, "dir_mix": 0,
             # counted by ops/cuda_match.py and ops/device_rans.py
             "match_estimate": 0, "rans_tables": 0, "rans_encode": 0, "rans_layout": 0,
@@ -273,7 +279,7 @@ def isin_sorted(values: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
 def kmer_dir_rc_plain(packed2d: torch.Tensor, k: int, index=None):
     """Plain version of ``kmer_dir_rc``: ``rolling_codes`` and
     ``valid_windows`` of the unpacked rows, membership by
-    ``searchsorted`` in the set (``index[0]``)."""
+    ``searchsorted`` in the set (``index.values``)."""
     codes = unpack4(packed2d)
     d, r = rolling_codes(codes, k, with_rc=True)
     sh = 64 - 2 * k
@@ -281,32 +287,44 @@ def kmer_dir_rc_plain(packed2d: torch.Tensor, k: int, index=None):
     valid = valid_windows(codes, k)
     member = None
     if index is not None:
-        member = valid & isin_sorted(torch.minimum(udir, urc), index[0])
+        member = valid & isin_sorted(torch.minimum(udir, urc), index.values)
     return udir, urc, valid, member
+
+
+def _set_args(index) -> tuple:
+    """agc_kmer_dir_rc's set arguments: both tables and the tail, or
+    nulls without a set."""
+    if index is None:
+        return (None, 1, 1, None, 1, 1, None, 0)
+    return (index.first.buckets.data_ptr(), index.first.hash, index.first.bits,
+            index.second.buckets.data_ptr(), index.second.hash, index.second.bits,
+            index.tail.data_ptr() if index.tail.numel() else None, index.tail.numel())
 
 
 def kmer_dir_rc(packed2d: torch.Tensor, k: int, index=None):
     """Both orientations' codes per position of nibble-packed rows.
 
-    packed2d: uint8[B, n/2]; index: the ``walk_index`` of a set that holds
-    each value once (its ``singles`` are the set), or None. Returns
-    (udir, urc, valid, member): int64[B, n] flipped left-aligned codes at
-    every position (agc_tpu's ``_kmer_core``), bool[B, n] valid windows,
-    and bool[B, n] ``valid & (min(udir, urc) in the set)``, or None
-    without a set."""
+    packed2d: uint8[B, n/2]; index: the ``SetTable`` of a set (``set_table``),
+    or None. Returns (udir, urc, valid, member): int64[B, n] flipped
+    left-aligned codes at every position (agc_tpu's ``_kmer_core``),
+    bool[B, n] valid windows, and bool[B, n] ``valid & (min(udir, urc) in
+    the set)``, or None without a set."""
     _require(packed2d.dim() == 2 and packed2d.dtype == torch.uint8,
              "kmer_dir_rc: packed2d must be uint8[B, n/2]")
     _require(1 <= k <= 32, "kmer_dir_rc: k must be in [1, 32]")
+    _require(index is None or isinstance(index, SetTable),
+             "kmer_dir_rc: index must be a SetTable (set_table)")
     if packed2d.device.type == "cpu":
         return kmer_dir_rc_plain(packed2d, k, index)
-    singles = dirs = None
-    if index is not None:
-        singles, dirs = index
-        _check_cuda("kmer_dir_rc", packed2d, singles, dirs)
-        _require(singles.dtype == torch.int64 and dirs.dtype == torch.int32
-                 and dirs.numel() == (1 << index_bits(singles.numel())) + 1,
-                 "kmer_dir_rc: index is not a walk_index")
     _check_cuda("kmer_dir_rc", packed2d)
+    if index is not None:
+        _check_cuda("kmer_dir_rc", packed2d, index.first.buckets, index.second.buckets,
+                    index.tail)
+        for level in (index.first, index.second):
+            _require(level.buckets.dtype == torch.int64
+                     and level.buckets.numel() == SET_SLOTS << level.bits
+                     and level.buckets.data_ptr() % 16 == 0 and level.hash & 1,
+                     "kmer_dir_rc: index is not a set_table")
     b, half = packed2d.shape
     dev = packed2d.device
     udir = torch.empty((b, 2 * half), dtype=torch.int64, device=dev)
@@ -317,13 +335,173 @@ def kmer_dir_rc(packed2d: torch.Tensor, k: int, index=None):
         rc = _build.lib().agc_kmer_dir_rc(
             packed2d.data_ptr(), b, half, k, udir.data_ptr(), urc.data_ptr(),
             valid.data_ptr(), None if member is None else member.data_ptr(),
-            None if singles is None else singles.data_ptr(),
-            None if dirs is None else dirs.data_ptr(),
-            0 if singles is None else index_bits(singles.numel()), _stream(packed2d),
+            *_set_args(index), _stream(packed2d),
         )
     _build.check(rc, "kmer_dir_rc")
     _count("kmer_dir_rc")
     return udir, urc, valid, member
+
+
+# ---------------------------------------------------------------------------
+# set_table: the tables kmer_dir_rc looks a set up in
+# ---------------------------------------------------------------------------
+
+SET_SLOTS = 4  # csrc/kmer_canon.cu's kSetSlots: int64 slots a bucket
+# the odd multipliers of the two tables' hashes (golden ratio, murmur3's c1)
+SET_HASH = (0x9E3779B97F4A7C15, 0xFF51AFD7ED558CCD)
+
+
+@dataclass(frozen=True)
+class SetLevel:
+    """One table of a set (csrc/kmer_canon.cu): ``buckets``
+    int64[4 << bits], bucket h at [4h, 4h + 4) holding the four smallest
+    values whose ``set_bucket`` is h in ascending order, then SENTINEL;
+    ``hash``, the odd multiplier of its hash."""
+
+    buckets: torch.Tensor
+    bits: int
+    hash: int
+
+
+@dataclass(frozen=True)
+class SetTable:
+    """A set of flipped int64 codes as ``kmer_dir_rc`` looks it up:
+    ``first``, its table; ``second``, the table of what the first's
+    buckets spill; ``tail``, what the second's spill, sorted; ``values``,
+    the set itself, sorted (the plain version searches it)."""
+
+    first: SetLevel
+    second: SetLevel
+    tail: torch.Tensor
+    values: torch.Tensor
+
+    @property
+    def nbytes(self) -> int:
+        """Bytes of the tables: buckets and the tail."""
+        return 8 * (self.first.buckets.numel() + self.second.buckets.numel()
+                    + self.tail.numel())
+
+    @property
+    def n_spilled(self) -> int:
+        """The values past the first table's buckets."""
+        return int((self.second.buckets != u64.SENTINEL).sum()) + self.tail.numel()
+
+
+def set_bits(n: int) -> int:
+    """Bucket bits for an n-value set: ceil(log2 n) - 1, at least 1, so 1
+    to 2 values a four-slot bucket, and the table (16 to 32 bytes a value)
+    at most twice a walk index of the same set (``index_bits``: 12 to 16
+    bytes a value up to its 2^30-entry directory)."""
+    return max(1, (n - 1).bit_length() - 1)
+
+
+def set_bucket(values: torch.Tensor, bits: int, mult: int = SET_HASH[0]) -> torch.Tensor:
+    """The bucket of each flipped code: the top ``bits`` bits of
+    ``(v ^ (v >> 32)) * mult`` mod 2^64 (the kernel's set_bucket; int64
+    products wrap as uint64 ones do)."""
+    signed = mult - (1 << 64) if mult >= 1 << 63 else mult
+    return u64.lsr((values ^ u64.lsr(values, 32)) * signed, 64 - bits)
+
+
+def set_level_plain(values: torch.Tensor, bits: int, mult: int):
+    """Plain version of one table's build: (the ``SetLevel`` of 2^bits
+    buckets, the sorted values past each bucket's four). The values
+    (SENTINEL dropped) sorted by (bucket, value); a value's slot is its
+    rank in its bucket."""
+    v = torch.sort(values[values != u64.SENTINEL]).values
+    h, order = torch.sort(set_bucket(v, bits, mult), stable=True)
+    v = v[order]
+    rank = torch.arange(v.numel(), device=v.device) - torch.searchsorted(h, h)
+    keep = rank < SET_SLOTS
+    buckets = torch.full((SET_SLOTS << bits,), u64.SENTINEL, dtype=torch.int64,
+                         device=values.device)
+    buckets[h[keep] * SET_SLOTS + rank[keep]] = v[keep]
+    return SetLevel(buckets, bits, mult), torch.sort(v[~keep]).values
+
+
+def set_table_plain(values: torch.Tensor) -> SetTable:
+    """Plain version of ``set_table``: the first table, the second over its
+    spill (twice the buckets: 0.5-1 value a bucket), the tail."""
+    first, spill = set_level_plain(values, set_bits(values.numel()), SET_HASH[0])
+    second, tail = set_level_plain(spill, set_bits(spill.numel()) + 1, SET_HASH[1])
+    return SetTable(first, second, tail, values)
+
+
+def _level_lookup(level: SetLevel, codes: torch.Tensor):
+    """(hit, spill) of codes in one table: in its bucket's four slots; or
+    not, and above the last slot of a full bucket."""
+    rows = level.buckets.view(-1, SET_SLOTS)[set_bucket(codes, level.bits, level.hash)]
+    hit = (rows == codes[..., None]).any(dim=-1)
+    last = rows[..., -1]
+    return hit, ~hit & (last != u64.SENTINEL) & (codes > last)
+
+
+def set_lookup_plain(table: SetTable, codes: torch.Tensor) -> torch.Tensor:
+    """Plain model of the kernel's lookup: the first table's bucket; for a
+    spill, the second's; for its spill, the tail. Equal to
+    ``isin_sorted(codes, set)`` for codes that are not SENTINEL; SENTINEL
+    is never a member."""
+    hit, spill = _level_lookup(table.first, codes)
+    hit2, spill2 = _level_lookup(table.second, codes)
+    hit = hit | (spill & (hit2 | (spill2 & isin_sorted(codes, table.tail))))
+    return hit & (codes != u64.SENTINEL)
+
+
+def _set_level(values: torch.Tensor, bits: int, mult: int):
+    """One table's build on the card, 2^bits buckets: over 2^19 buckets,
+    the values counted by slice of the table and moved to their slices
+    (``torch.cumsum`` of the counts between the two); then the fill and
+    the inserts; one host sync for the spill's size. The spill's room
+    is a sixteenth of the values; values that need more (a crafted set)
+    are built again with room for all of it."""
+    n = values.numel()
+    dev = values.device
+    lib = _build.lib()
+    buckets = torch.empty(SET_SLOTS << bits, dtype=torch.int64, device=dev)
+    count = torch.empty(1, dtype=torch.int64, device=dev)
+    pbits = lib.agc_set_part_bits(bits)
+    offsets = part = None
+    if pbits and n:
+        # the table's 16 MB slices: the values moved to them in turn
+        blocks = -(-n // lib.agc_set_part_chunk())
+        counts = torch.empty((1 << pbits) * blocks, dtype=torch.int32, device=dev)
+        with torch.cuda.device(dev):
+            _build.check(lib.agc_set_partition_count(values.data_ptr(), n, mult, bits, pbits,
+                                                     counts.data_ptr(), _stream(values)),
+                         "set_table")
+        offsets = torch.cumsum(counts, 0, dtype=torch.int64) - counts
+        part = torch.empty(n, dtype=torch.int64, device=dev)
+    cap = n // 16 + 64
+    while True:
+        spill = torch.empty(cap, dtype=torch.int64, device=dev)
+        with torch.cuda.device(dev):
+            rc = lib.agc_set_table_build(
+                values.data_ptr(), n, mult, bits, pbits,
+                None if offsets is None else offsets.data_ptr(),
+                None if part is None else part.data_ptr(), buckets.data_ptr(),
+                spill.data_ptr(), cap, count.data_ptr(), _stream(values))
+        _build.check(rc, "set_table")
+        _count("set_table")
+        m = int(count)  # the spill's size: one host sync a table
+        if m <= cap:
+            return SetLevel(buckets, bits, mult), spill[:m]
+        cap = m
+
+
+def set_table(values: torch.Tensor) -> SetTable:
+    """The ``SetTable`` of a sorted set of flipped int64 codes (a value
+    held twice takes two slots, SENTINEL none), built on the card: the
+    first table over the set, the second over its spill, in the order the
+    first's inserts left it; the second's spill, sorted by ``torch.sort``,
+    is the tail."""
+    _require(values.dim() == 1 and values.dtype == torch.int64,
+             "set_table: values must be int64[n]")
+    if values.device.type == "cpu":
+        return set_table_plain(values)
+    _check_cuda("set_table", values)
+    first, spill = _set_level(values, set_bits(values.numel()), SET_HASH[0])
+    second, tail = _set_level(spill, set_bits(spill.numel()) + 1, SET_HASH[1])
+    return SetTable(first, second, torch.sort(tail).values, values)
 
 
 # ---------------------------------------------------------------------------

@@ -2,7 +2,7 @@
 ``compress_device`` and ``decompress_device`` around five hand-written
 kernels (``csrc/rans.cu``): ``rans_tables``, ``rans_encode``,
 ``rans_layout`` and ``rans_write`` code a store flush, ``rans_decode``
-decodes one blob.
+decodes a batch of blobs.
 
 Counterpart of agc_tpu's ``ops/device_rans.py``. Its blobs are byte-equal
 to the host coder's (``core/entropy.py``): the tables follow
@@ -23,7 +23,12 @@ Which engine runs where:
   escape, at its offset (the coded parts' lanes run again and write their
   bytes in place) into a buffer sized from the flush's shapes
   (``blob_cap``); the host downloads the offsets, then the blobs' bytes,
-  and slices them. ``rans_decode`` decodes one blob, one thread a lane.
+  and slices them. ``rans_decode`` decodes a batch of blobs in one launch,
+  one thread a lane, by a schedule of work rows made on the host
+  (``_decode_rows``): 256 lanes of a large blob a block, up to 16 small
+  blobs of one tier a block; each blob's symbols come from its slot table
+  in shared memory (or, where the schedule asks for it, a rank search of
+  its cumulative frequencies).
 - CPU tensors (``device="cpu"``): their plain PyTorch versions
   (``rans_tables_plain``: bincounts and ``quantize_plain``, the same
   closed form of ``quantize_freqs`` as torch ops across parts;
@@ -590,68 +595,142 @@ def code_flush(data: torch.Tensor, meta: torch.Tensor, chunks: torch.Tensor,
 # ---------------------------------------------------------------------------
 
 
+_RANK_MODE, _TABLE_MODE = 0, 1  # csrc/rans.cu's decode modes
+_DECODE_BLOBS, _DECODE_TABLES = 16, 4  # blobs a rank- / table-mode block at most
+# the lane tiers that decode through slot tables: all of them. On an H100
+# they won at every tier of chip_smoke.py's synthetic batch (2-3x), and
+# lost to the rank search on its phase-10 batch of short 8- and 64-lane
+# blobs; chip_smoke.py times both modes a tier
+TABLE_MIN_LANES = 1
+
+
+def _check_decode_meta(meta, n_lanes: int, n_freqs: int) -> None:
+    """Refuse, before any launch, a meta that is not ``blob_tensors``':
+    n >= 1 and L = lanes_for(n) a blob, lanes and outputs back to back,
+    the lanes those of ``states``, a frequency row a blob."""
+    _require(isinstance(meta, np.ndarray) and meta.dtype == np.int64 and meta.ndim == 2
+             and meta.shape[1] == 4 and 1 <= len(meta) < (1 << 31),
+             "rans_decode: meta must be a host int64[B, 4] array, B >= 1")
+    n, lanes, lane0, out0 = meta.T
+    _require(bool((n >= 1).all()) and bool((lanes == _lanes_np(n)).all()),
+             "rans_decode: a blob's n must be >= 1 and its L lanes_for(n)")
+    _require(bool((lane0 == np.cumsum(lanes) - lanes).all()) and int(lanes.sum()) == n_lanes,
+             "rans_decode: the blobs' lanes must follow one another and be the states'")
+    _require(bool((out0 == np.cumsum(n) - n).all()),
+             "rans_decode: the blobs' outputs must follow one another")
+    _require(n_freqs == len(meta), "rans_decode: freqs must hold a row a blob")
+
+
+def _decode_rows(meta: np.ndarray, table_min_lanes: int = TABLE_MIN_LANES):
+    """``rans_decode``'s schedule: (sel int32[B], the blobs in work order;
+    work int32[W, 4] rows (mode, first index into sel, blobs, first
+    lane)). Tiers from the largest: a row a 256-lane slice of a 256- or
+    1024-lane blob; smaller blobs of one tier packed into a row, 256 /
+    max(L, 16) of them, at most 4 in table mode. Tiers of table_min_lanes
+    lanes and more decode through slot tables, the rest by rank search."""
+    lanes = meta[:, 1]
+    sel, rows = [], []
+    first = 0
+    for n_lanes in reversed(_LANES):
+        idx = np.flatnonzero(lanes == n_lanes)
+        if not len(idx):
+            continue
+        mode = _TABLE_MODE if n_lanes >= table_min_lanes else _RANK_MODE
+        if n_lanes >= _BLOCK_LANES:
+            per = n_lanes // _BLOCK_LANES
+            r = np.arange(len(idx) * per)
+            rows.append(np.stack([np.full_like(r, mode), first + r // per, np.ones_like(r),
+                                  (r % per) * _BLOCK_LANES], axis=1))
+        else:
+            per = min(_BLOCK_LANES // max(n_lanes, 16),
+                      _DECODE_TABLES if mode == _TABLE_MODE else _DECODE_BLOBS)
+            at = np.arange(0, len(idx), per)
+            rows.append(np.stack([np.full_like(at, mode), first + at,
+                                  np.minimum(per, len(idx) - at), np.zeros_like(at)], axis=1))
+        sel.append(idx)
+        first += len(idx)
+    return (np.concatenate(sel).astype(np.int32),
+            np.concatenate(rows).astype(np.int32).reshape(-1, 4))
+
+
 def rans_decode_plain(stream: torch.Tensor, lane_off: torch.Tensor, states: torch.Tensor,
-                      freqs: torch.Tensor, n: int) -> torch.Tensor:
-    """Plain version of ``rans_decode``: agc_tpu's ``_decode_fn``, the
-    symbol as the rank ``sum(cum[1:] <= slot)`` (by ``searchsorted``), bytes through a zero-padded
-    (L, max_len + 1) matrix and a per-lane cursor."""
+                      freqs: torch.Tensor, meta: np.ndarray) -> torch.Tensor:
+    """Plain version of ``rans_decode``: agc_tpu's ``_decode_fn`` over every
+    lane of every blob at once, the symbol as the rank ``sum(cum[1:] <=
+    slot)`` (one ``searchsorted`` over all blobs' cum rows, each offset by
+    8192 times its blob), a lane's bytes read at its cursor inside its
+    range."""
     dev = stream.device
-    n_lane = states.numel()
-    lens = lane_off[1:] - lane_off[:-1]
-    max_len = int(lens.max())
-    mat = torch.zeros((n_lane, max_len + 1), dtype=torch.uint8, device=dev)
-    lane_of = torch.repeat_interleave(torch.arange(n_lane, device=dev), lens)
-    col = torch.arange(lane_of.numel(), device=dev) - lane_off[lane_of]
-    mat[lane_of, col] = stream[: lane_of.numel()]
+    n_blob = len(meta)
+    n, lanes, lane0, out0 = torch.from_numpy(meta).to(dev).unbind(1)
+    blob = torch.repeat_interleave(torch.arange(n_blob, device=dev), lanes,
+                                   output_size=states.numel())
+    lane = torch.arange(states.numel(), device=dev) - lane0[blob]
+    n_l, l_l = n[blob], lanes[blob]
+    steps = torch.where(lane < n_l, (n_l - lane + l_l - 1) // l_l, 0)
+    size = stream.numel()
+    start = lane_off[:-1].clamp(0, size)
+    length = torch.maximum(lane_off[1:].clamp(max=size), start) - start
     f_tab = freqs.long()
-    cum = torch.zeros(257, dtype=torch.int64, device=dev)
-    cum[1:] = torch.cumsum(f_tab, 0)
+    cum = torch.zeros((n_blob, 257), dtype=torch.int64, device=dev)
+    cum[:, 1:] = torch.cumsum(f_tab, 1)
+    keys = (torch.arange(n_blob, device=dev)[:, None] * 8192 + cum[:, 1:256]).reshape(-1)
     x = states.long() & _M32
-    cur = torch.zeros(n_lane, dtype=torch.int64, device=dev)
-    lane = torch.arange(n_lane, device=dev)
-    steps = -(-n // n_lane)
-    out = torch.empty((steps, n_lane), dtype=torch.uint8, device=dev)
-    for t in range(steps):
-        active = t * n_lane + lane < n
+    cur = torch.zeros_like(x)
+    out = torch.zeros(int(meta[-1, 0] + meta[-1, 3]), dtype=torch.uint8, device=dev)
+    at = out0[blob] + lane
+    data = stream.long()
+    for t in range(int(((meta[:, 0] + meta[:, 1] - 1) // meta[:, 1]).max())):
+        active = t < steps
         slot = x & (E.PROB_SCALE - 1)
-        s = torch.searchsorted(cum[1:], slot, right=True).clamp(max=255)
-        out[t] = s.to(torch.uint8)
-        nx = (f_tab[s] * (x >> E.PROB_BITS) + slot - cum[s]) & _M32
+        s = (torch.searchsorted(keys, blob * 8192 + slot, right=True) - blob * 255).clamp(0, 255)
+        out[(at + t * l_l)[active]] = s[active].to(torch.uint8)
+        nx = (f_tab[blob, s] * (x >> E.PROB_BITS) + slot - cum[blob, s]) & _M32
         x = torch.where(active, nx, x)
         for _ in range(2):  # decode renorm reads at most 2 bytes
             need = active & (x < E.RANS_L)
-            byte = mat.gather(1, cur.clamp(max=max_len)[:, None])[:, 0].long()
+            byte = (torch.where(cur < length, data[(start + cur).clamp(max=size - 1)], 0)
+                    if size else torch.zeros_like(x))
             x = torch.where(need, (x << 8) | byte, x)
             cur = cur + need.long()
-    return out.reshape(-1)[:n]
+    return out
 
 
 def rans_decode(stream: torch.Tensor, lane_off: torch.Tensor, states: torch.Tensor,
-                freqs: torch.Tensor, n: int) -> torch.Tensor:
-    """Decode one blob's lanes.
+                freqs: torch.Tensor, meta: np.ndarray,
+                table_min_lanes: int = TABLE_MIN_LANES) -> torch.Tensor:
+    """Decode a batch of blobs in one launch.
 
-    stream: uint8[S], the blob's concatenated lane streams; lane_off:
-    int64[L + 1] their offsets; states: int64[L] the final encoder states
-    (uint32 values); freqs: int32[256]; n: the symbol count. L is
-    ``lanes_for(n)``. Returns uint8[n]."""
+    stream: uint8[S], every lane's stream back to back; lane_off:
+    int64[lanes + 1] their offsets; states: int64[lanes] the final encoder
+    states (uint32 values); freqs: int32[B, 256]; meta: int64[B, 4] on the
+    host, a row a blob (n, L = lanes_for(n), first lane, output offset),
+    as ``blob_tensors`` makes them; table_min_lanes: the lane tiers that
+    decode through slot tables (the schedule's choice, ``_decode_rows``).
+    Returns uint8[sum n], each blob's symbols at its offset. A malformed
+    meta is refused before the launch; a lane reads only inside its
+    lane_off range, clamped to the stream."""
     _require(stream.dim() == 1 and stream.dtype == torch.uint8,
              "rans_decode: stream must be uint8[S]")
-    _require(states.dim() == 1 and states.dtype == torch.int64 and states.numel() in _LANES,
-             "rans_decode: states must be int64[L], L in (1, 8, 64, 256, 1024)")
-    n_lane = states.numel()
-    _require(lane_off.shape == (n_lane + 1,) and lane_off.dtype == torch.int64,
-             "rans_decode: lane_off must be int64[L + 1]")
-    _require(freqs.shape == (256,) and freqs.dtype == torch.int32,
-             "rans_decode: freqs must be int32[256]")
-    _require(n >= n_lane, "rans_decode: n must be at least the lane count")
+    _require(states.dim() == 1 and states.dtype == torch.int64,
+             "rans_decode: states must be int64[lanes]")
+    _require(lane_off.shape == (states.numel() + 1,) and lane_off.dtype == torch.int64,
+             "rans_decode: lane_off must be int64[lanes + 1]")
+    _require(freqs.dim() == 2 and freqs.shape[1] == 256 and freqs.dtype == torch.int32,
+             "rans_decode: freqs must be int32[B, 256]")
+    _check_decode_meta(meta, states.numel(), freqs.shape[0])
     if stream.device.type == "cpu":
-        return rans_decode_plain(stream, lane_off, states, freqs, n)
+        return rans_decode_plain(stream, lane_off, states, freqs, meta)
     _check_cuda("rans_decode", stream, lane_off, states, freqs)
-    out = torch.empty(n, dtype=torch.uint8, device=stream.device)
-    with torch.cuda.device(stream.device):
+    dev = stream.device
+    sel, work = _decode_rows(meta, table_min_lanes)
+    meta_d, sel_d, work_d = (torch.from_numpy(a).to(dev) for a in (meta, sel, work))
+    out = torch.empty(int(meta[-1, 0] + meta[-1, 3]), dtype=torch.uint8, device=dev)
+    with torch.cuda.device(dev):
         rc = _build.lib().agc_rans_decode(
-            stream.data_ptr(), lane_off.data_ptr(), states.data_ptr(), freqs.data_ptr(),
-            n, n_lane, out.data_ptr(), _stream(stream),
+            stream.data_ptr(), stream.numel(), lane_off.data_ptr(), states.data_ptr(),
+            freqs.data_ptr(), meta_d.data_ptr(), sel_d.data_ptr(), work_d.data_ptr(),
+            work.shape[0], out.data_ptr(), _stream(stream),
         )
     _build.check(rc, "rans_decode")
     _count("rans_decode")
@@ -754,12 +833,11 @@ def compress_device(data, level: int = 0, device="cuda") -> bytes:
     return encode_batch([data], device)[0]
 
 
-def blob_tensors(blob, dev: torch.device, expected_size: int | None = None):
-    """``rans_decode``'s inputs for a blob on ``dev``, (stream, lane_off,
-    states, freqs, n), or the decoded bytes themselves for an empty or
-    raw-escape blob. Raises ValueError where agc_tpu's decoder does, and
-    for a frequency table that does not sum to 4096 (the slot table
-    needs the full scale)."""
+def _parse_blob(blob, expected_size: int | None):
+    """A blob's decoded bytes where it is empty or a raw escape, else
+    (stream bytes, lane lengths, states, freqs, n) on the host. Raises
+    ValueError where agc_tpu's decoder does, and for a frequency table that
+    does not sum to 4096 (the slot table needs the full scale)."""
     n, flags, freqs, lane_lens, states, pos = E.parse_header(blob)
     if n == 0:
         return b""
@@ -777,17 +855,49 @@ def blob_tensors(blob, dev: torch.device, expected_size: int | None = None):
         return raw
     if int(freqs.sum()) != E.PROB_SCALE:
         raise ValueError("corrupt rANS blob")
+    flat = np.frombuffer(buf, dtype=np.uint8, count=int(lane_lens.sum()), offset=pos)
+    return flat, lane_lens, states, freqs, n
+
+
+def blob_tensors(blobs: list, dev: torch.device, expected_sizes: list | None = None):
+    """``rans_decode``'s inputs for a list of blobs: (done, args). done[i]
+    is blob i's bytes where it is empty or a raw escape, None where it is
+    coded; args is (stream, lane_off, states, freqs, meta) of the coded
+    blobs in order, on ``dev`` (meta on the host), or None without one.
+    Raises as ``_parse_blob``."""
+    sizes = expected_sizes if expected_sizes is not None else [None] * len(blobs)
+    done, coded = [], []
+    for blob, size in zip(blobs, sizes, strict=True):
+        got = _parse_blob(blob, size)
+        done.append(got if isinstance(got, bytes) else None)
+        if not isinstance(got, bytes):
+            coded.append(got)
+    if not coded:
+        return done, None
+    flat, lane_lens, states, freqs, n = zip(*coded)
+    lane_lens = np.concatenate(lane_lens)
     offs = np.zeros(len(lane_lens) + 1, dtype=np.int64)
     np.cumsum(lane_lens, out=offs[1:])
-    flat = np.frombuffer(buf, dtype=np.uint8, count=int(offs[-1]), offset=pos).copy()
-    return (torch.from_numpy(flat).to(dev), torch.from_numpy(offs).to(dev),
-            torch.from_numpy(states.astype(np.int64)).to(dev),
-            torch.from_numpy(freqs.astype(np.int32)).to(dev), n)
+    n = np.array(n, dtype=np.int64)
+    lanes = _lanes_np(n)
+    meta = np.stack([n, lanes, np.cumsum(lanes) - lanes, np.cumsum(n) - n], axis=1)
+    return done, (torch.from_numpy(np.concatenate(flat)).to(dev), torch.from_numpy(offs).to(dev),
+                  torch.from_numpy(np.concatenate(states).astype(np.int64)).to(dev),
+                  torch.from_numpy(np.stack(freqs).astype(np.int32)).to(dev), meta)
+
+
+def _decoded(done: list, out: torch.Tensor, meta: np.ndarray) -> list[bytes]:
+    """Every blob's bytes: ``done``'s, and the coded blobs' slices of
+    ``rans_decode``'s output in order."""
+    flat = memoryview(out.cpu().numpy())
+    coded = iter(zip(meta[:, 3].tolist(), (meta[:, 3] + meta[:, 0]).tolist()))
+    return [d if d is not None else bytes(flat[slice(*next(coded))]) for d in done]
 
 
 def decompress_device(blob, expected_size: int | None = None, device="cuda") -> bytes:
-    """Device twin of ``entropy.decompress``: one ``rans_decode`` launch."""
-    args = blob_tensors(blob, resolve_device(device), expected_size)
-    if isinstance(args, bytes):
-        return args
-    return rans_decode(*args).cpu().numpy().tobytes()
+    """Device twin of ``entropy.decompress``: one ``rans_decode`` launch
+    over a batch of this one blob."""
+    done, args = blob_tensors([blob], resolve_device(device), [expected_size])
+    if args is None:
+        return done[0]
+    return _decoded(done, rans_decode(*args), args[4])[0]

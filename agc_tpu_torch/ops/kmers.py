@@ -465,10 +465,8 @@ def collect_kmers(codes: np.ndarray, k: int, device) -> torch.Tensor:
 def scan_contig(codes: np.ndarray, k: int, index, device):
     """The dense scan of a whole contig (agc_tpu's scan_contig): per
     position (canon, udir, urc, valid, member) as host numpy arrays, codes
-    left-aligned u64. ``index``: the ``walk_index`` of a set that holds
-    each value once (every entry of a singleton table is a singleton, so
-    the walk's bucket lookup answers membership), or None for no set. One
-    kmer_dir_rc launch."""
+    left-aligned u64. ``index``: the ``set_table`` of a set, or None for
+    no set. One kmer_dir_rc launch."""
     n = len(codes)
     if n == 0:
         z = np.zeros(0, np.uint64)
@@ -489,12 +487,6 @@ _MURMUR_C1 = 0xFF51AFD7ED558CCD - (1 << 64)  # as int64
 _MURMUR_C2 = 0xC4CEB9FE1A85EC53 - (1 << 64)
 
 
-def _lsr(x: torch.Tensor, s: int) -> torch.Tensor:
-    """Logical right shift of int64 bit patterns (torch's >> is
-    arithmetic on signed types)."""
-    return (x >> s) & ((1 << (64 - s)) - 1)
-
-
 def sample_keep(canon: torch.Tensor, frac_bits: int) -> torch.Tensor:
     """The value sample of agc_tpu's sample_compact_kmers: True where
     ``canon`` (flipped int64) is a k-mer, not SENTINEL, whose murmur64
@@ -505,16 +497,16 @@ def sample_keep(canon: torch.Tensor, frac_bits: int) -> torch.Tensor:
     int64 multiply returns the low 64 bits of the two's-complement
     product, and those are the unsigned product modulo 2^64, so the
     finalizer's multiplies are exact; its right shifts are logical
-    (``_lsr``)."""
+    (``u64.lsr``)."""
     if not 1 <= frac_bits <= 63:
         raise ValueError(f"frac_bits must be in [1, 63], got {frac_bits}")
     h = u64.flip(canon)
-    h = h ^ _lsr(h, 33)
+    h = h ^ u64.lsr(h, 33)
     h = h * _MURMUR_C1
-    h = h ^ _lsr(h, 33)
+    h = h ^ u64.lsr(h, 33)
     h = h * _MURMUR_C2
-    h = h ^ _lsr(h, 33)
-    return (_lsr(h, 64 - frac_bits) == 0) & (canon != u64.SENTINEL)
+    h = h ^ u64.lsr(h, 33)
+    return (u64.lsr(h, 64 - frac_bits) == 0) & (canon != u64.SENTINEL)
 
 
 def chunk_slices(n: int, k: int) -> list[tuple[int, int]]:

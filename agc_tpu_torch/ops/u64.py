@@ -57,6 +57,12 @@ def flip(x: torch.Tensor) -> torch.Tensor:
     return x ^ FLIP
 
 
+def lsr(x: torch.Tensor, s: int) -> torch.Tensor:
+    """Logical right shift of int64 bit patterns by 0 < s < 64 (torch's >>
+    is arithmetic on signed types)."""
+    return (x >> s) & ((1 << (64 - s)) - 1)
+
+
 def low32(x: torch.Tensor) -> torch.Tensor:
     """Low 32 bits of an int64 bit pattern, as the int32 with those bits."""
     lo = x & M32

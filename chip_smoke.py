@@ -4,6 +4,7 @@
     python3 chip_smoke.py          # from the repository root, one CUDA card
     python3 chip_smoke.py --rans-only   # phases 1-2, the rANS kernels' checks
                                         # and their timing on a synthetic flush
+                                        # and a synthetic decode batch
 
 Phases (any failure exits non-zero before the result line):
 
@@ -33,11 +34,15 @@ Phases (any failure exits non-zero before the result line):
    branches: windows without hits, seg below the window width, cap inside
    a round, short contigs, no singleton, several contigs a launch, bit-63
    codes; kmer_dir_rc (both orientations' codes, the valid flag and
-   membership in a set through its walk index) at k = 1, 17, 31, 32 on
+   membership in a set through its set_table) at k = 1, 17, 31, 32 on
    seam-packed rows with invalid symbols on tile boundaries, without a
-   set and with a singleton table, an empty one and one of bit-63 values,
-   then timed at 1 x 64 Mi symbols, k=31, without a set and with the
-   chr-scale pool's singletons; match_estimate (the match layer's
+   set and with a singleton table, an empty one, one of bit-63 values and
+   one crafted so that buckets of both its tables overflow, each set's
+   table against set_table_plain, then timed at 1 x 64 Mi symbols, k=31,
+   without a set and with the chr-scale pool's 55.6 M singletons (their
+   set_table built, held against its plain version and timed, its bytes
+   and spill printed, and isin_sorted on the same codes timed beside the
+   lookups); match_estimate (the match layer's
    estimate of (segment row, candidate group) pairs) at key_len 16 and 17,
    strides 4, 8 and 16, on rows of invalid keys only, hits in the first
    and last probe block, a run that starts right after the kernel's tile
@@ -60,8 +65,11 @@ Phases (any failure exits non-zero before the result line):
    that are not _prepare's (an entry dropped, repeated, moved or cut off,
    given to the tables or to the writer alone) refused at the download
    with the flush after them still right, rans_encode without its lane
-   count refused, and rans_decode on each coded blob against its plain
-   version and the input;
+   count refused, and rans_decode (a batch of blobs a launch) on every
+   coded blob of the flush and the coded forms of the cases the coder
+   escapes (all five lane tiers) in one launch against its plain version
+   and the inputs, each tier alone with slot tables and with the rank
+   search, each blob alone through decompress_device;
 4. the main path: a chr-scale create (one 64 Mbase reference contig with
    repeat families + 2 resequenced samples, default parameters) through
    agc_tpu_torch.core.compressor.create_archive(device="cuda"), with the
@@ -136,7 +144,12 @@ Phases (any failure exits non-zero before the result line):
    of ops/device_rans.py wrapped with timers), launch counts; every blob of
    the run against the host native coder on its payload, every part's
    tables against quantize_freqs, up to 4096 coded blobs decoded on the
-   card through decompress_device, the kernels timed at the largest
+   card through decompress_device (a launch each), then in one rans_decode
+   launch against its plain version, timed against the 4096 launches and
+   beside the sum of their bounds, each tier in both symbol modes; the
+   same for a synthetic batch of 4096 compressible parts of 1 to 300,000
+   bytes (every lane tier; also under --rans-only); the kernels timed at
+   the largest
    flush's shape (each call with CUDA events and split by torch.profiler
    into its kernels and torch ops, a call's kernel time only where every
    kernel it launches was recorded; the flush once more with any host sync
@@ -238,32 +251,96 @@ def dir_rc_bound(n_packed: int, index_bytes: int | None = None) -> tuple[float, 
     return bound(n_packed + 36 * n_packed + index_bytes, 40 * n_packed)
 
 
-def dir_rc_hard(np, torch, ck, u64, hard) -> int:
+def colliding(np, torch, ck, rng, n: int, rules, dev):
+    """n flipped codes (not SENTINEL) in the given buckets: rules of
+    (bits, multiplier, bucket)."""
+    found, n_found = [], 0
+    while n_found < n:
+        cand = torch.from_numpy(rng.integers(-(1 << 63), SENTINEL - 1, 1 << 22,
+                                             dtype=np.int64)).to(dev)
+        ok = torch.ones(cand.numel(), dtype=torch.bool, device=dev)
+        for bits, mult, bucket in rules:
+            ok &= ck.set_bucket(cand, bits, mult) == bucket
+        found.append(cand[ok])
+        n_found += found[-1].numel()
+    return torch.cat(found)[:n]
+
+
+def overflowing_set(np, torch, ck, vals, rng):
+    """The sorted codes `vals` with 40 more codes in each of three of their
+    first-table buckets, and 12 in the first of those and in one bucket of
+    the second table (the top 10 bits of its hash, one bucket for any
+    second table of up to 2^10), so that both tables spill."""
+    if vals.numel() < 64:
+        return vals
+    bits = ck.set_bits(vals.numel() + 3 * 40 + 12)
+    h0, h1 = ck.SET_HASH
+    third = vals.numel() // 3
+    picks = ck.set_bucket(vals[[0, third, 2 * third]], bits, h0).tolist()
+    extra = [colliding(np, torch, ck, rng, 40, [(bits, h0, b)], vals.device) for b in picks]
+    extra.append(colliding(np, torch, ck, rng, 12, [(bits, h0, picks[0]), (10, h1, 5)],
+                           vals.device))
+    out = torch.unique(torch.cat([vals, *extra]))
+    check(ck.set_bits(out.numel()) == bits, "the crafted set changed its bucket bits")
+    return out
+
+
+# set_table's kernels: the partition count and scatter (tables of more
+# than 2^19 buckets), the fill, the inserts
+SET_KERNELS = ("set_count_kernel", "set_scatter_kernel", "set_fill_kernel", "set_insert_kernel")
+
+
+def set_table_err(torch, ck, got, want) -> int:
+    """max_abs_err over set_table's buckets and tail, with its bits and
+    hash multipliers checked equal."""
+    for a, b in ((got.first, want.first), (got.second, want.second)):
+        check((a.bits, a.hash) == (b.bits, b.hash),
+              f"set_table's bits and multiplier {(a.bits, a.hash)} differ from {(b.bits, b.hash)}")
+    return max(max_abs_err(torch, a, b) for a, b in (
+        (got.first.buckets, want.first.buckets), (got.second.buckets, want.second.buckets),
+        (got.tail, want.tail)))
+
+
+def dir_rc_hard(np, torch, ck, u64, hard) -> tuple[int, int]:
     """kmer_dir_rc against its plain version at k = 1, 17, 31, 32 on the
     seam-packed rows `hard`: without a set, with a singleton table (a third
-    of the rows' distinct codes), an empty one, and one of bit-63 values
-    only. Returns the largest max_abs_err (checked to be 0)."""
-    worst = 0
+    of the rows' distinct codes), an empty one, one of bit-63 values only,
+    and one whose buckets overflow; each set's table (set_table) against
+    set_table_plain. Returns the largest max_abs_err of kmer_dir_rc and of
+    set_table (both checked to be 0)."""
+    worst = worst_table = 0
     for hk in (1, 17, 31, 32):
         canon = ck.kmer_canon_plain(hard, hk)
         vals = torch.unique(canon[canon != SENTINEL])
         high = vals[vals < 0]  # flipped: the unsigned codes with bit 63 set
         sets = {"none": None, "singletons": vals[::3].contiguous(),
-                "empty": vals[:0].contiguous(), "bit 63": high.contiguous()}
+                "empty": vals[:0].contiguous(), "bit 63": high.contiguous(),
+                "overflowing": overflowing_set(np, torch, ck, vals[vals.numel() // 4:][::25],
+                                               np.random.default_rng(SEED + 15 + hk))}
         for name, table in sets.items():
-            idx = None if table is None else ck.walk_index(table)
+            idx = None if table is None else ck.set_table(table)
+            if idx is not None:
+                et = set_table_err(torch, ck, idx, ck.set_table_plain(table))
+                check(et == 0, f"set_table disagrees with its plain version at k={hk}, set "
+                               f"{name} ({et})")
+                worst_table = max(worst_table, et)
             got = ck.kmer_dir_rc(hard, hk, idx)
             want = ck.kmer_dir_rc_plain(hard, hk, idx)
             e = max(max_abs_err(torch, a, b) for a, b in zip(got, want) if a is not None)
             members = None if got[3] is None else int(got[3].sum())
+            spill = ("" if idx is None else
+                     f", {idx.n_spilled} spilled, {idx.tail.numel()} to the tail")
             print(f"kmer_dir_rc hard case k={hk}, set '{name}' "
-                  f"({0 if table is None else table.numel()} values): {hard.shape[0]} seam-packed "
-                  f"rows x {2 * hard.shape[1]} symbols, {members} members, max_abs_err {e}")
+                  f"({0 if table is None else table.numel()} values{spill}): {hard.shape[0]} "
+                  f"seam-packed rows x {2 * hard.shape[1]} symbols, {members} members, "
+                  f"max_abs_err {e}")
             check(e == 0, f"kmer_dir_rc disagrees with its plain version at k={hk}, set {name} ({e})")
-            if name in ("singletons", "bit 63") and table.numel():
+            if name in ("singletons", "bit 63", "overflowing") and table.numel():
                 check(members > 0, f"kmer_dir_rc found no member of the '{name}' set")
+            if name == "overflowing" and table.numel() > 64:
+                check(idx.tail.numel() > 0, f"the overflowing set at k={hk} did not spill twice")
             worst = max(worst, e)
-    return worst
+    return worst, worst_table
 
 
 def walk_bound(positions: int, n_out: int) -> tuple[float, str]:
@@ -1400,11 +1477,41 @@ def rans_bounds(n_sym: int, n_coded: int, n_stream: int, n_blob: int, n_raw: int
                 encode_pr8=encode_pr8)
 
 
-def rans_decode_bound(n_sym: int, n_stream: int, n_lanes: int) -> tuple[float, str]:
-    """rans_decode of one blob: its symbols written and its stream bytes
-    read once, 1 KB of frequencies and 8 bytes a lane (state and offset)."""
-    return bound(n_sym + n_stream + 1024 + 8 * n_lanes,
+def rans_decode_bound(n_sym: int, n_stream: int, n_lanes: int,
+                      n_blobs: int = 1) -> tuple[float, str]:
+    """rans_decode of n_blobs blobs: their symbols written and their stream
+    bytes read once, 1 KB of frequencies a blob and 8 bytes a lane (state
+    and offset): the sum of each blob's bound."""
+    return bound(n_sym + n_stream + 1024 * n_blobs + 8 * n_lanes,
                  RANS_DECODE_OPS * n_sym + RANS_BYTE_OPS * n_stream)
+
+
+def decode_batch_bound(args) -> tuple[float, str]:
+    """rans_decode_bound of a batch (blob_tensors' args)."""
+    stream, _off, states, _freqs, meta = args
+    return rans_decode_bound(int(meta[:, 0].sum()), stream.numel(), states.numel(), len(meta))
+
+
+def coded_blob(np, E, data: bytes) -> bytes:
+    """The coded form of a payload, kept where entropy.assemble_blob would
+    escape it (under ~600 bytes): the decoders take it, and it is how the
+    1- and 8-lane tiers are reached."""
+    arr = np.frombuffer(data, dtype=np.uint8)
+    freqs = E.quantize_freqs(np.bincount(arr, minlength=256))
+    streams, states = E._encode_lanes(arr, freqs)
+    out = bytearray([E.MAGIC, E.lanes_for(len(data)).bit_length() - 1])
+    for v in (len(data), *freqs.tolist(), *map(len, streams)):
+        E._put_varint(out, int(v))
+    for x in states:
+        out += int(x).to_bytes(4, "little")
+    return bytes(out + b"".join(streams))
+
+
+def decode_batch(torch, D, dev, blobs: list, table_min_lanes=None) -> list:
+    """blobs through one rans_decode launch (blob_tensors, then slices)."""
+    done, args = D.blob_tensors(blobs, dev)
+    kw = {} if table_min_lanes is None else {"table_min_lanes": table_min_lanes}
+    return D._decoded(done, D.rans_decode(*args, **kw), args[4])
 
 
 def rans_cases(np) -> list:
@@ -1512,17 +1619,29 @@ def rans_kernels(np, torch, D, E, dev, results) -> None:
                           states, want_blobs)
     check(D.encode_batch(cases, dev) == [E.compress(c) for c in cases],
           "encode_batch differs from the host coder")
-    dec_err, n_dec = 0, 0
-    for c, blob in zip(live, blobs):
-        dargs = D.blob_tensors(blob, dev)
-        if isinstance(dargs, bytes):  # a raw escape
-            check(dargs == c, "a raw-escape blob does not give its input")
-            continue
-        out = D.rans_decode(*dargs)
-        e = max_abs_err(torch, out, D.rans_decode_plain(*dargs))
-        check(e == 0 and out.cpu().numpy().tobytes() == c,
-              f"rans_decode of a {len(c)}-byte blob disagrees ({e})")
-        dec_err, n_dec = max(dec_err, e), n_dec + 1
+    # rans_decode: every coded blob of the flush, and the coded forms of
+    # the cases the coder escapes (the 1- and 8-lane tiers), in one batch;
+    # then each tier in a batch of its own in both symbol modes, and each
+    # coded blob alone through decompress_device
+    small = [c for c in live if len(c) < 1024]
+    dec_in = blobs + [coded_blob(np, E, c) for c in small]
+    dec_want = live + small
+    done, dargs = D.blob_tensors(dec_in, dev)
+    out = D.rans_decode(*dargs)
+    dec_err = max_abs_err(torch, out, D.rans_decode_plain(*dargs))
+    check(dec_err == 0 and D._decoded(done, out, dargs[4]) == dec_want,
+          f"rans_decode of the cases' batch disagrees ({dec_err})")
+    dec_tiers = sorted(set(dargs[4][:, 1].tolist()))
+    check(dec_tiers == [1, 8, 64, 256, 1024], f"the decoded blobs cover tiers {dec_tiers}")
+    for tier in dec_tiers:
+        pick = [(b, c) for b, c in zip(dec_in, dec_want)
+                if E.lanes_for(len(c)) == tier and not b[1] & E._RAW_FLAG]
+        for tml in (tier, 2048):  # its slot tables, then the rank search
+            check(decode_batch(torch, D, dev, [b for b, _ in pick], tml) == [c for _, c in pick],
+                  f"rans_decode of the {tier}-lane blobs (table_min_lanes {tml}) disagrees")
+    n_dec = sum(d is None for d in done)
+    check(all(D.decompress_device(b, len(c), DEVICE) == c for b, c in zip(dec_in, dec_want)),
+          "decompress_device does not give a case's input")
     n_raw = sum(bool(b[1] & E._RAW_FLAG) for b in blobs)
     print(f"rans_tables / rans_encode / rans_layout / rans_write: {len(live)} parts of "
           f"{len(prep.data)} bytes in one flush (lane tiers {tiers}, {len(prep.work)} encode "
@@ -1531,7 +1650,8 @@ def rans_kernels(np, torch, D, E, dev, results) -> None:
           f"{wr_err}, tables equal to quantize_freqs, every blob equal to the host coder's, "
           f"code_flush with no host sync, {n_bad} malformed chunk lists refused and the flush "
           f"after each right, rans_encode without its lane count refused; "
-          f"rans_decode: {n_dec} blobs decoded to their inputs, "
+          f"rans_decode: {n_dec} coded blobs of tiers {dec_tiers} decoded to their inputs in "
+          f"one launch, each tier alone in both symbol modes, each blob alone, "
           f"max_abs_err {dec_err}")
     for name, replaces, err in (
             ("rans_tables", "agc_tpu/ops/device_rans.py:242", tab_err),
@@ -1617,15 +1737,13 @@ def opt_ms(v) -> str:
     return "not recorded" if v is None else f"{v:.4f}"
 
 
-def rans_timing(np, torch, D, E, dev, results, card, payloads: list, blobs: list,
-                blob: bytes) -> None:
+def rans_timing(np, torch, D, E, dev, results, card, payloads: list, blobs: list) -> None:
     """The kernels at the shape of the largest flush (its payloads and the
     blobs the card gave them): rans_tables, rans_encode, rans_layout and
     rans_write over its parts, and the four as the flush (code_flush), each
     whole call timed with CUDA events and split by torch.profiler into its
     kernels and torch ops; the flush once more with no host sync allowed
-    until its download, its blobs equal to the given ones; rans_decode of
-    the run's largest coded blob (raw escapes are not decoded); the flush
+    until its download, its blobs equal to the given ones; the flush
     through encode_batch on the card and through the host native coder."""
     t0 = time.perf_counter()
     D.encode_batch(payloads, dev)
@@ -1702,13 +1820,6 @@ def rans_timing(np, torch, D, E, dev, results, card, payloads: list, blobs: list
                            for k, ms in sorted(acts.items(), key=lambda kv: -kv[1]))
                  if acts else "its kernels not all recorded")
               for name, acts in split.items()))
-    dargs = D.blob_tensors(blob, dev)
-    n = dargs[4]
-    rd = results["rans_decode"]
-    rd["ms"] = cuda_ms(torch, lambda: D.rans_decode(*dargs), 10)
-    rd["plain_ms"] = cuda_ms(torch, lambda: D.rans_decode_plain(*dargs), 1)
-    rd["bound"] = rans_decode_bound(n, dargs[0].numel(), dargs[2].numel())
-    rd["shape"] = f"the largest coded blob: {n} symbols, {dargs[2].numel()} lanes"
     print(f"rANS over {shape}: " + "; ".join(
         f"{name} {results[name]['ms']:.4f} ms, kernels {opt_ms(results[name]['kernel_ms'])} ms "
         f"(bound {results[name]['bound'][0]:.4f} ms, {results[name]['bound'][1]}), plain "
@@ -1716,10 +1827,83 @@ def rans_timing(np, torch, D, E, dev, results, card, payloads: list, blobs: list
         + f"; the four as the flush (code_flush) {re['flush_ms']:.4f} ms, kernels "
         f"{opt_ms(re['flush_kernel_ms'])} ms (bound {re['flush_bound_ms']:.4f} ms, "
         f"{re['flush_bound_by']}); rans_encode under the 27-operation count: bound "
-        f"{re['old_count_bound_ms']:.4f} ms; rans_decode of {n} symbols: "
-        f"{rd['ms']:.4f} ms (bound {rd['bound'][0]:.4f} ms), plain {rd['plain_ms']:.4f} ms; "
+        f"{re['old_count_bound_ms']:.4f} ms; "
         f"the flush through encode_batch on the card {card_s:.4f} s, through the host native "
         f"coder {host_s:.4f} s ({card})")
+
+
+def decode_timing(np, torch, D, dev, results, card, blobs: list, payloads: list,
+                  key: str) -> None:
+    """rans_decode of a batch of coded blobs in one launch against its plain
+    version and the payloads, timed with CUDA events beside the sum of the
+    blobs' bounds, and the same blobs in one launch each; then each lane
+    tier's blobs alone in both symbol modes (slot tables, rank search).
+    key "" writes the row's ms, plain_ms and bound; "synthetic_" writes
+    them under that prefix."""
+    done, args = D.blob_tensors(blobs, dev)
+    check(all(d is None for d in done), "a blob of the decode batch is not coded")
+    out = D.rans_decode(*args)
+    e = max_abs_err(torch, out, D.rans_decode_plain(*args))
+    check(e == 0 and D._decoded(done, out, args[4]) == payloads,
+          f"rans_decode of {len(blobs)} blobs in one launch disagrees ({e})")
+    meta = args[4]
+    singles = [D.blob_tensors([b], dev)[1] for b in blobs]
+    rd = results["rans_decode"]
+    rd["max_abs_err"] = max(rd["max_abs_err"], e)
+    one = cuda_ms(torch, lambda: D.rans_decode(*args), 10)
+    each = cuda_ms(torch, lambda: [D.rans_decode(*a) for a in singles], 2)
+    plain = cuda_ms(torch, lambda: D.rans_decode_plain(*args), 1)
+    bnd = decode_batch_bound(args)
+    kernel = ("rans_decode_kernel",)
+    calls = {"batch": (lambda: D.rans_decode(*args), kernel)}
+    counts = {}
+    for tier in sorted(set(meta[:, 1].tolist())):
+        pick = [b for b, m in zip(blobs, meta[:, 1].tolist()) if m == tier]
+        counts[tier] = len(pick)
+        targs = D.blob_tensors(pick, dev)[1]
+        for mode, tml in (("table", tier), ("rank", 2048)):
+            calls[f"{tier} {mode}"] = (
+                lambda targs=targs, tml=tml: D.rans_decode(*targs, table_min_lanes=tml), kernel)
+    split = rans_split(torch, calls)
+    dev_ms = {name: got and got["rans_decode_kernel"] for name, got in split.items()}
+    tiers = {tier: {"blobs": c, "table_kernel_ms": dev_ms[f"{tier} table"],
+                    "rank_kernel_ms": dev_ms[f"{tier} rank"]} for tier, c in counts.items()}
+    rd[f"{key}ms" if key else "ms"] = one
+    rd[f"{key}kernel_ms" if key else "kernel_ms"] = dev_ms["batch"]
+    rd[f"{key}plain_ms" if key else "plain_ms"] = plain
+    rd[f"{key}bound_ms"] = bnd[0]
+    rd[f"{key}one_launch_a_blob_ms"] = each
+    rd[f"{key}tier_ms"] = tiers
+    if not key:
+        rd["bound"] = bnd
+    shape = (f"{len(blobs)} coded blobs, {int(meta[:, 0].sum())} symbols, "
+             f"{args[2].numel()} lanes, {args[0].numel()} stream bytes")
+    rd[f"{key}shape"] = shape
+    share = "not recorded" if dev_ms["batch"] is None else f"{100 * bnd[0] / dev_ms['batch']:.2f}%"
+    print(f"rans_decode ({key or 'the run'}'s batch: {shape}): one launch {one:.4f} ms a call, "
+          f"kernel {opt_ms(dev_ms['batch'])} ms ({share} of the bound), {len(blobs)} launches "
+          f"{each:.4f} ms, plain {plain:.4f} ms, bound {bnd[0]:.6f} ms ({bnd[1]}), max_abs_err "
+          f"{e}; each tier's blobs alone, kernel ms with slot tables / rank search: "
+          f"{json.dumps(tiers)} ({card})")
+
+
+def synthetic_decode(np, E) -> tuple[list, list]:
+    """A synthetic batch of 4096 compressible parts from the seed: skewed
+    alphabets of 4 to 16 symbols, lengths log-uniform in [1, 300,000], so
+    every lane tier occurs (parts the coder would escape in coded form).
+    Returns (blobs, payloads)."""
+    rng = np.random.default_rng(SEED + 14)
+    payloads = []
+    for n in np.exp(rng.uniform(0, np.log(300_000), 4096)).astype(np.int64):
+        alpha = int(rng.integers(4, 17))
+        p = rng.random(alpha) ** 3 + 1e-3
+        cdf = np.cumsum(p / p.sum())
+        payloads.append(np.searchsorted(cdf[:-1], rng.random(int(n))).astype(np.uint8).tobytes())
+    blobs = []
+    for p in payloads:
+        b = E.compress(p)
+        blobs.append(coded_blob(np, E, p) if b[1] & E._RAW_FLAG else b)
+    return blobs, payloads
 
 
 def synthetic_flush(np) -> list:
@@ -1732,17 +1916,17 @@ def synthetic_flush(np) -> list:
 
 def rans_only(np, torch, D, E, dev, card) -> None:
     """--rans-only: phase 3's rANS checks, then rans_timing on the synthetic
-    flush, its blobs checked against the host coder's: a short chip call
-    after a change to csrc/rans.cu."""
+    flush, its blobs checked against the host coder's, and decode_timing on
+    the synthetic decode batch: a short chip call after a change to
+    csrc/rans.cu."""
     results = {}
     rans_kernels(np, torch, D, E, torch.device(DEVICE), results)
-    rng = np.random.default_rng(SEED + 13)
     payloads = synthetic_flush(np)
     blobs = D.encode_batch(payloads, dev)
     check(blobs == [E.compress(p) for p in payloads],
           "the synthetic flush's blobs differ from the host coder's")
-    coded = E.compress(rng.integers(0, 4, 1 << 20, dtype=np.uint8).tobytes())
-    rans_timing(np, torch, D, E, dev, results, card, payloads, blobs, coded)
+    rans_timing(np, torch, D, E, dev, results, card, payloads, blobs)
+    decode_timing(np, torch, D, dev, results, card, *synthetic_decode(np, E), "synthetic_")
 
 
 def rans_phase(np, torch, ck, D, E, CompressorParams, create_archive, append_archive,
@@ -1842,7 +2026,7 @@ def rans_phase(np, torch, ck, D, E, CompressorParams, create_archive, append_arc
     del tables, card_freqs, live
     # up to 4096 coded blobs of the run back through decompress_device on
     # the card (raw escapes decode on the host)
-    coded = [(p, b) for p, b in pairs if len(b) > 1 and not b[1] & E._RAW_FLAG]
+    coded = [(p, b) for p, b in pairs if len(p) and not b[1] & E._RAW_FLAG]
     check(coded, "every part of the tpu-rans create is a raw escape")
     ck.reset_launches()
     back = [D.decompress_device(b, len(p), DEVICE) for p, b in coded[:4096]]
@@ -1851,8 +2035,13 @@ def rans_phase(np, torch, ck, D, E, CompressorParams, create_archive, append_arc
           "decompress_device does not give the parts' payloads")
     print(f"decompress_device: {len(back)} of the run's {len(coded)} coded blobs decoded on the "
           f"card to their payloads ({results['rans_decode']['launches']} rans_decode launches)")
-    rans_timing(np, torch, D, E, torch.device(DEVICE), results, card, payloads, blobs,
-                max(coded, key=lambda pb: len(pb[0]))[1])
+    rans_timing(np, torch, D, E, torch.device(DEVICE), results, card, payloads, blobs)
+    # the same 4096 coded blobs in one launch (set a), then the synthetic
+    # batch (set b)
+    dev = torch.device(DEVICE)
+    decode_timing(np, torch, D, dev, results, card, [b for _, b in coded[:4096]],
+                  [p for p, _ in coded[:4096]], "")
+    decode_timing(np, torch, D, dev, results, card, *synthetic_decode(np, E), "synthetic_")
     del flushes, pairs, payloads, blobs, back, coded
     t0 = time.perf_counter()
     with AGCFile(out) as agc:
@@ -2137,7 +2326,7 @@ def main() -> int:
               f"{2 * hard.shape[1]} symbols: max_abs_err {e}")
         check(e == 0, f"kmer_canon disagrees with its plain version at k={hk} ({e})")
         kc_err = max(kc_err, e)
-    dr_err = dir_rc_hard(np, torch, ck, u64, hard)
+    dr_err, st_err = dir_rc_hard(np, torch, ck, u64, hard)
     del hard
     cpacked = torch.from_numpy(tk.pack4_np(ref)[None, :]).to(dev)
     canon = ck.kmer_canon(cpacked, k)
@@ -2200,12 +2389,18 @@ def main() -> int:
     )
     # kmer_dir_rc at 1 x 64 Mi symbols, k=31: without a set (the segment
     # scans of -f) and with the pool's singletons (-f discovery's dense
-    # scan against the singleton table)
+    # scan against the singleton table), through that set's table
+    singles = idx[0]
+    sti = ck.set_table(singles)
+    et = set_table_err(torch, ck, sti, ck.set_table_plain(singles))
+    check(et == 0, f"set_table disagrees with its plain version at the 64 Mi set ({et})")
     e = max(max_abs_err(torch, x, y) for x, y in zip(ck.kmer_dir_rc(cpacked, k)[:3],
                                                      ck.kmer_dir_rc_plain(cpacked, k)[:3]))
-    em = max_abs_err(torch, ck.kmer_dir_rc(cpacked, k, idx)[3],
-                     ck.kmer_dir_rc_plain(cpacked, k, idx)[3])
+    em = max_abs_err(torch, ck.kmer_dir_rc(cpacked, k, sti)[3],
+                     ck.kmer_dir_rc_plain(cpacked, k, sti)[3])
     check(e == 0 and em == 0, f"kmer_dir_rc disagrees with its plain version ({e}, {em})")
+    n_valid = int(ck.kmer_dir_rc(cpacked, k)[2].sum())
+    walk_bytes = 8 * singles.numel() + 4 * idx[1].numel()
     results["kmer_dir_rc"] = dict(
         source="agc_tpu_torch/csrc/kmer_canon.cu",
         replaces="agc_tpu/ops/pallas_kmers.py:137",
@@ -2214,21 +2409,57 @@ def main() -> int:
         plain_ms=cuda_ms(torch, lambda: ck.kmer_dir_rc_plain(cpacked, k), 2),
         library_ms=None,
         bound=dir_rc_bound(cpacked.numel()),
-        member_ms=cuda_ms(torch, lambda: ck.kmer_dir_rc(cpacked, k, idx), 10),
-        member_plain_ms=cuda_ms(torch, lambda: ck.kmer_dir_rc_plain(cpacked, k, idx), 2),
-        member_bound_ms=dir_rc_bound(cpacked.numel(),
-                                     8 * idx[0].numel() + 4 * idx[1].numel())[0],
+        member_ms=cuda_ms(torch, lambda: ck.kmer_dir_rc(cpacked, k, sti), 10),
+        member_plain_ms=cuda_ms(torch, lambda: ck.kmer_dir_rc_plain(cpacked, k, sti), 2),
+        # the set counted as a walk index: 8 bytes a value, 4 a directory
+        # entry (PR 9's yardstick; the table's own bytes do not raise it)
+        member_bound_ms=dir_rc_bound(cpacked.numel(), walk_bytes)[0],
+        # the lookup stage's yardstick: isin_sorted on the same codes
+        member_library_ms=cuda_ms(torch, lambda: ck.isin_sorted(flat, singles), 3),
         # PR 8's count: two 32-byte sectors a lookup of a valid position
-        member_bound_pr8_count_ms=bound(
-            37 * cpacked.numel() + 64 * int(ck.kmer_dir_rc(cpacked, k)[2].sum()),
-            40 * cpacked.numel())[0],
-        shape=f"1 contig x {len(ref)} symbols, k=31; with a set: the {idx[0].numel()} "
+        member_bound_pr8_count_ms=bound(37 * cpacked.numel() + 64 * n_valid,
+                                        40 * cpacked.numel())[0],
+        member_table_bytes=sti.nbytes,
+        member_walk_index_bytes=walk_bytes,
+        member_spill_share=sti.n_spilled / max(1, singles.numel()),
+        shape=f"1 contig x {len(ref)} symbols, k=31; with a set: the {singles.numel()} "
               "singletons of its pool",
     )
     r = results["kmer_dir_rc"]
+    results["set_table"] = dict(
+        source="agc_tpu_torch/csrc/kmer_canon.cu",
+        replaces="agc_tpu/ops/kmers.py:258",
+        max_abs_err=max(st_err, et),
+        ms=cuda_ms(torch, lambda: ck.set_table(singles), 5),
+        plain_ms=cuda_ms(torch, lambda: ck.set_table_plain(singles), 1),
+        library_ms=None,
+        # the set read once, the table (buckets and overflow) written once
+        bound=bound(8 * singles.numel() + sti.nbytes, 0),
+        table_bytes=sti.nbytes,
+        spill_share=r["member_spill_share"],
+        shape=f"the {singles.numel()} singletons of the 64 Mi pool: 2^{sti.first.bits} + "
+              f"2^{sti.second.bits} buckets, {sti.n_spilled} spilled, {sti.tail.numel()} to the "
+              "tail",
+    )
     print(f"kmer_dir_rc k=31 n={len(ref)}: max_abs_err {r['max_abs_err']}; {r['ms']:.4f} ms "
-          f"(bound {r['bound'][0]:.4f}), with {idx[0].numel()} singletons {r['member_ms']:.4f} "
-          f"ms (bound {r['member_bound_ms']:.4f}) ({card})")
+          f"(bound {r['bound'][0]:.4f}), with {singles.numel()} singletons "
+          f"{r['member_ms']:.4f} ms (bound {r['member_bound_ms']:.4f}, "
+          f"{100 * r['member_bound_ms'] / r['member_ms']:.1f}% of it; lookups "
+          f"{r['member_ms'] - r['ms']:.4f} ms against isin_sorted's "
+          f"{r['member_library_ms']:.4f} ms); set_table {results['set_table']['ms']:.4f} ms "
+          f"(bound {results['set_table']['bound'][0]:.4f}), 2^{sti.first.bits} + "
+          f"2^{sti.second.bits} buckets, {sti.nbytes} table bytes against the walk index's "
+          f"{walk_bytes}, {sti.n_spilled} values spilled ({100 * r['member_spill_share']:.3f}% "
+          f"of the set), {sti.tail.numel()} to the tail ({card})")
+    split = rans_split(torch, {
+        "set_table": (lambda: ck.set_table(singles), SET_KERNELS),
+        "kmer_dir_rc with the set": (lambda: ck.kmer_dir_rc(cpacked, k, sti),
+                                     ("kmer_dir_rc_kernel",))})
+    sk = split["set_table"]
+    results["set_table"]["kernel_ms"] = sk and sum(sk[n] for n in SET_KERNELS)
+    print("set_table and kmer_dir_rc with the set split by torch.profiler (device ms a call): "
+          + json.dumps(split) + f" ({card})")
+    del sti
     g = ck.greedy_walk(flat, starts, reals, pool, seg, cap, index=idx)
     gp = ck.greedy_walk_plain(flat, starts, reals, pool, seg, cap)
     e = max_abs_err(torch, g, gp)
@@ -2394,12 +2625,22 @@ def main() -> int:
                       pack_cardinality=50000)
         discovered = []
         real_determine = Compressor.determine_splitters
+        set_tables = []  # (values, bytes, spilled, tail, walk index bytes) of -f's sets
+        real_set_table = cmod.set_table
 
         def counting_determine(self, reference_file):
             real_determine(self, reference_file)
             discovered.append(set(self._splitter_set))
 
+        def sizing_set_table(values):
+            st = real_set_table(values)
+            set_tables.append((values.numel(), st.nbytes, st.n_spilled, st.tail.numel(),
+                               8 * values.numel()
+                               + 4 * ((1 << ck.index_bits(values.numel())) + 1)))
+            return st
+
         Compressor.determine_splitters = counting_determine
+        cmod.set_table = sizing_set_table
         try:
             for label, params, lfiles in (
                 ("-a", CompressorParams(adaptive_compression=True, **stress), afiles),
@@ -2442,10 +2683,18 @@ def main() -> int:
                           "the -a run did not scan through scan_fused, then the join")
                 if params.fallback_frac:
                     check(alaunch["kmer_dir_rc"] > 0, f"the {label} run never launched kmer_dir_rc")
+                    check(alaunch["set_table"] > 0, f"the {label} run never launched set_table")
                     if label == "-f 0.05":
                         results["kmer_dir_rc"]["launches"] = alaunch["kmer_dir_rc"]
+                        results["set_table"]["launches"] = alaunch["set_table"]
+                        n, nbytes, spill, tail, walk = set_tables[0]
+                        print(f"-f 0.05 discovery's set_table: {n} values, {nbytes} table bytes "
+                              f"(a walk index of the set: {walk}), {spill} spilled, {tail} to "
+                              "the tail")
+                set_tables.clear()
         finally:
             Compressor.determine_splitters = real_determine
+            cmod.set_table = real_set_table
 
         stamp("6")
 
@@ -2598,7 +2847,9 @@ def main() -> int:
          "bound_by": r["bound"][1], "library_ms": r["library_ms"],
          **{key: v for key, v in r.items()
             if key.startswith(("whole_genome", "chr_scale", "large_table", "member_",
-                               "adaptive_", "anchor_", "old_count_", "flush_", "kernel_ms"))}}
+                               "adaptive_", "anchor_", "old_count_", "flush_", "kernel_ms",
+                               "synthetic_", "one_launch_", "tier_", "spill_",
+                               "table_bytes"))}}
         for name, r in results.items()
     ]
     for name, r in results.items():

@@ -136,6 +136,28 @@ def test_append_round_trip(tmp_path, device_match_off):
     assert_extracts(ours2, files, ["c1"])
 
 
+@pytest.mark.parametrize("sample_name", [None, "given"])
+def test_add_sample_file_matches_agc_tpu(tmp_path, device_match_off, sample_name):
+    """The one-file entry, the sample named from its path or given: both
+    engines' archives equal part for part."""
+    from agc_tpu.core.compressor import Compressor as TpuCompressor
+    from agc_tpu_torch.core.compressor import Compressor
+
+    files = make_collection(tmp_path, random.Random(17), n_samples=2,
+                            contig_lens=(40000, 9000))
+    ref = files[0][1]
+    params = CompressorParams(segment_size=3000)
+    ours, tpu = str(tmp_path / "port.agc"), str(tmp_path / "tpu.agc")
+    for comp in (Compressor(ours, params, reference_file=ref, device="cpu"),
+                 TpuCompressor(tpu, _tpu_params(params), reference_file=ref)):
+        for _name, path in files:
+            assert comp.add_sample_file(path, sample_name and f"{sample_name}-{_name}")
+        comp.close()
+    assert_same_archive(ours, tpu)
+    named = [((sample_name and f"{sample_name}-{n}") or n, p) for n, p in files]
+    assert_extracts(ours, named, ["c1", "c2"])
+
+
 def test_port_never_imports_jax(tmp_path):
     files = make_collection(tmp_path, random.Random(5), n_samples=1,
                             contig_lens=(30000,))

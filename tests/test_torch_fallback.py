@@ -74,22 +74,22 @@ def test_kmer_dir_rc_plain_matches_agc_tpu(k):
 
 @pytest.mark.parametrize("k", [17, 21, 31, 32])
 def test_kmer_dir_rc_membership_matches_agc_tpu(k):
-    """Membership through the walk index of a set (each value once; bit-63
-    values, values the contig lacks), against agc_tpu's searchsorted."""
+    """Membership through the set's table (each value once; bit-63 values,
+    values the contig lacks), against agc_tpu's searchsorted."""
     codes = _codes(100 + k, 8192)
     jd, jr, jv = (np.asarray(x) for x in jk.contig_kmers_dir_rc(jnp.asarray(codes), k))
     canon = np.unique(np.minimum(jd, jr)[jv])
     extra = np.array([1 << 63, (1 << 63) + (1 << 40), 5 << (64 - 2 * k)], np.uint64)
     table = np.unique(np.concatenate([canon[::3], extra]))
     assert (table >= np.uint64(1 << 63)).any()
-    index = ck.walk_index_plain(u64.from_u64(table))
+    index = ck.set_table(u64.from_u64(table))
     _, _, _, member = _dir_rc(codes, k, index)
     _, _, _, jm = jk.contig_kmers_dir_rc_with_membership(
         jnp.asarray(codes), k, jnp.asarray(jk._padded_table(table))
     )
     np.testing.assert_array_equal(member, np.asarray(jm))
     assert member.sum() > 100
-    _, _, _, none = _dir_rc(codes, k, ck.walk_index_plain(u64.from_u64(table[:0])))
+    _, _, _, none = _dir_rc(codes, k, ck.set_table(u64.from_u64(table[:0])))
     assert not none.any()
 
 
@@ -101,7 +101,7 @@ def test_scan_contig_matches_agc_tpu(with_set):
     if with_set:
         jd, jr, jv = (np.asarray(x) for x in jk.contig_kmers_dir_rc(jnp.asarray(codes), k))
         table = np.unique(np.minimum(jd, jr)[jv])[::5]
-    index = ck.walk_index_plain(u64.from_u64(table)) if with_set else None
+    index = ck.set_table(u64.from_u64(table)) if with_set else None
     got = tk.scan_contig(codes, k, index, "cpu")
     want = jk.scan_contig(codes, k, table)
     for g, w, name in zip(got, want, ("canon", "udir", "urc", "valid", "member")):
