@@ -51,13 +51,10 @@
 // block. rans_decode has no division: ~10 operations a symbol, one thread
 // a lane, lanes independent, so its schedule (_decode_rows in
 // ops/device_rans.py) gives a block 256 lanes of a 256- or 1024-lane blob,
-// or packs up to 16 smaller blobs of one tier into a block. A blob's
+// or packs up to 8 smaller blobs of one tier into a block. A blob's
 // symbol comes from its slot table in shared memory (4096 bytes, filled
-// from the cumulative frequencies, 16 slots a thread, no search a slot),
-// or else from a rank search of the cumulative frequencies (8 shared loads
-// a symbol): the schedule's table_min_lanes chooses (tables by default;
-// on an H100 they won on large batches at every tier, the rank search on
-// a small batch of short blobs).
+// from the cumulative frequencies, 16 slots a thread, a search only where
+// a symbol's range ends).
 //
 // Scratch that rans_tables and rans_layout are given is zero when they
 // start and zero again when they end (the block that consumes a value
@@ -958,22 +955,20 @@ __global__ void __launch_bounds__(kThreads) rans_streams_kernel(
 // rans_decode
 // ---------------------------------------------------------------------------
 
-// rans_decode work rows: (mode, first index into sel, blobs, first lane)
-constexpr int kTableMode = 1;  // the symbol from the blob's slot table (0: by a rank search)
-constexpr int kDecodeBlobs = 16;   // blobs a rank-mode block at most
-constexpr int kDecodeTables = 4;   // blobs a table-mode block at most
-// shared words of a decode block: the rank mode's f << 16 | cum rows, or
-// the table mode's rows and 4096-byte slot tables
-constexpr int kDecodeWords = kDecodeTables * (256 + kProbScale / 4) > kDecodeBlobs * 256
-                                 ? kDecodeTables * (256 + kProbScale / 4)
-                                 : kDecodeBlobs * 256;
-constexpr int kStageBytes = 24 << 10;  // a 256-lane slice's stream bytes, staged
+// rans_decode work rows: (first index into sel, blobs, first lane)
+constexpr int kDecodeBlobs = 8;  // blobs a decode block at most
+// a blob's shared bytes: 256 words f << 16 | cum, then its slot table
+constexpr int kBlobBytes = 256 * 4 + kProbScale;
+// a decode block's shared bytes: its blobs' tables, then its stream bytes
+// (39 KB for a row of one blob, 4 KB for a row of 8); 44 KB leaves five
+// blocks an SM
+constexpr int kDecodeBytes = 44 << 10;
 
 // The number of symbols s < 255 with cum[s + 1] <= slot (agc_tpu's rank,
-// sum(cum[1:] <= slot), which cum[256] = 4096 keeps below 256). t: a
-// blob's 256 words f << 16 | cum.
-__device__ __forceinline__ int rank_of(const uint32_t* t, uint32_t slot) {
-  int lo = 0, hi = 255;
+// sum(cum[1:] <= slot), which cum[256] = 4096 keeps below 256), searched
+// between lo and hi, which must hold it. t: a blob's 256 words f << 16 |
+// cum.
+__device__ __forceinline__ int rank_in(const uint32_t* t, uint32_t slot, int lo, int hi) {
   while (lo < hi) {
     const int mid = (lo + hi) >> 1;
     if ((t[mid + 1] & 0xFFFFu) <= slot) lo = mid + 1; else hi = mid;
@@ -984,7 +979,6 @@ __device__ __forceinline__ int rank_of(const uint32_t* t, uint32_t slot) {
 // One lane's symbols, written at out[t * L] (out already at the lane); a
 // read past the lane's bytes gives 0. src is in global or shared memory,
 // so its loads are generic.
-template <bool kTable>
 __device__ __forceinline__ void decode_lane(const uint8_t* __restrict__ src, int64_t len,
                                             uint32_t x, int64_t steps, int L,
                                             const uint32_t* t, const uint8_t* sym,
@@ -992,7 +986,7 @@ __device__ __forceinline__ void decode_lane(const uint8_t* __restrict__ src, int
   int64_t cur = 0;
   for (int64_t i = 0; i < steps; ++i) {
     const uint32_t slot = x & (kProbScale - 1);
-    const uint32_t s = kTable ? sym[slot] : static_cast<uint32_t>(rank_of(t, slot));
+    const uint32_t s = sym[slot];
     out[i * L] = static_cast<uint8_t>(s);
     const uint32_t e = t[s];
     x = (e >> 16) * (x >> kProbBits) + slot - (e & 0xFFFFu);
@@ -1007,32 +1001,39 @@ __device__ __forceinline__ void decode_lane(const uint8_t* __restrict__ src, int
   }
 }
 
-// A block a work row. Warp w loads the frequencies of blobs w, w + 8, ...
-// of the row and scans them into f << 16 | cum words (8 a lane, a shuffle
-// scan of the lane sums); in table mode the block then fills each blob's
-// 4096-slot table, a thread 16 consecutive slots: the symbol of the first
-// by rank_of, the rest by stepping past the symbols whose range ends. A
-// row of one blob (256 lanes of a large one) copies its lanes' bytes to
-// shared memory first where they fit in kStageBytes: read from global
+// A block a work row: 256 lanes of a large blob, or up to 8 small blobs of
+// one tier. Warp w loads the frequencies of blobs w, w + 8, ... of the row
+// and scans them into f << 16 | cum words (8 a lane, a shuffle scan of the
+// lane sums). The row's stream bytes go to the shared bytes its tables
+// leave, blob by blob while they fit, as 16-byte words: read from global
 // memory a byte a renorm, they waited on L2 (the lanes of an SM touch
-// more lines than the L1 beside the blocks' shared memory keeps).
-// Then a blob of the row has 256 / blobs threads, one a lane. meta: i64[B,
-// 4] (n, L, first lane, output offset); a lane's bytes are read only
-// inside its lane_off range, clamped to the stream.
+// more lines than the L1 beside the blocks' shared memory keeps). The
+// block then fills each blob's 4096-slot table, a thread a run of 16-slot
+// chunks, each one 16-byte store: the symbol of the first slot by a
+// binary search, and a search again only where a symbol's range ends, so
+// a run of symbols of frequency 0 (a blob of digits and 255, say) costs
+// one search, not a step a symbol. Then a blob of the row has 256 / blobs
+// threads, one a lane.
+// meta: i64[B, 4] (n, L, first lane, output offset); a lane's bytes are
+// read only inside its lane_off range, clamped to the stream.
 __global__ void __launch_bounds__(kThreads) rans_decode_kernel(
     const uint8_t* __restrict__ stream, int64_t n_stream, const int64_t* __restrict__ lane_off,
     const int64_t* __restrict__ states, const int32_t* __restrict__ freqs,
     const int64_t* __restrict__ meta, const int32_t* __restrict__ sel,
     const int32_t* __restrict__ work, uint8_t* __restrict__ out) {
-  __shared__ __align__(16) uint32_t smem[kDecodeWords];
-  __shared__ uint8_t stage[kStageBytes];
-  __shared__ int64_t staged[2];  // the staged bytes' stream range, or -1
-  const int32_t* row = work + 4 * static_cast<int64_t>(blockIdx.x);
-  const bool table = row[0] == kTableMode;
-  const int first = row[1];
-  const int count = row[2];
-  const int lane0 = row[3];
-  if (count < 1 || count > (table ? kDecodeTables : kDecodeBlobs)) return;  // not a row of ours
+  __shared__ __align__(16) uint8_t smem[kDecodeBytes];
+  // each blob's stream range and its place among the staged bytes (-1: not
+  // staged)
+  __shared__ int64_t s_lo[kDecodeBlobs], s_hi[kDecodeBlobs], s_at[kDecodeBlobs];
+  const int32_t* row = work + 3 * static_cast<int64_t>(blockIdx.x);
+  const int first = row[0];
+  const int count = row[1];
+  const int lane0 = row[2];
+  if (count < 1 || count > kDecodeBlobs) return;  // not a row of ours
+  uint32_t* tab = reinterpret_cast<uint32_t*>(smem);
+  uint8_t* sym = smem + count * 1024;
+  uint8_t* stage = smem + count * kBlobBytes;
+  const int64_t stage_cap = kDecodeBytes - count * kBlobBytes;
   const int warp = threadIdx.x >> 5;
   const int l = threadIdx.x & 31;
   for (int r = warp; r < count; r += kWarps) {
@@ -1047,43 +1048,77 @@ __global__ void __launch_bounds__(kThreads) rans_decode_kernel(
     uint32_t run = warp_incl_scan(sum) - sum;
 #pragma unroll
     for (int i = 0; i < 8; ++i) {
-      smem[r * 256 + l * 8 + i] = (v[i] << 16) | (run & 0xFFFFu);
+      tab[r * 256 + l * 8 + i] = (v[i] << 16) | (run & 0xFFFFu);
       run += v[i];
     }
   }
-  if (threadIdx.x == 0) {
-    // a row of one blob (a 256-lane slice): its lanes' bytes, contiguous in
-    // the stream, go to shared memory where they fit
-    int64_t lo = -1, hi = -1;
-    if (count == 1) {
-      const int64_t* m0 = meta + 4 * static_cast<int64_t>(sel[first]);
-      const int64_t g0 = m0[2] + lane0;
-      const int64_t nl = m0[1] - lane0 < kThreads ? m0[1] - lane0 : kThreads;
-      lo = lane_off[g0];
-      hi = lane_off[g0 + nl];
-      lo = lo < 0 ? 0 : (lo > n_stream ? n_stream : lo);
-      hi = hi < lo ? lo : (hi > n_stream ? n_stream : hi);
-      if (hi - lo > kStageBytes) lo = hi = -1;
-    }
-    staged[0] = lo;
-    staged[1] = hi;
+  if (static_cast<int>(threadIdx.x) < count) {  // the row's lanes of blob r, contiguous
+    const int64_t* m0 = meta + 4 * static_cast<int64_t>(sel[first + threadIdx.x]);
+    const int64_t g0 = m0[2] + lane0;
+    const int64_t nl = m0[1] - lane0 < kThreads ? m0[1] - lane0 : kThreads;
+    int64_t lo = lane_off[g0], hi = lane_off[g0 + nl];
+    lo = lo < 0 ? 0 : (lo > n_stream ? n_stream : lo);
+    hi = hi < lo ? lo : (hi > n_stream ? n_stream : hi);
+    s_lo[threadIdx.x] = lo;
+    s_hi[threadIdx.x] = hi;
   }
   __syncthreads();
-  const int64_t stage_lo = staged[0], stage_hi = staged[1];
-  for (int64_t j = threadIdx.x; j < stage_hi - stage_lo; j += kThreads) {
-    stage[j] = __ldg(stream + stage_lo + j);
+  if (threadIdx.x == 0) {
+    // blob r's bytes at an offset of the same alignment as in the stream,
+    // so that their middle copies as 16-byte words
+    int64_t run = 0;
+    for (int r = 0; r < count; ++r) {
+      const int64_t len = s_hi[r] - s_lo[r];
+      const int64_t at = ((run + 15) & ~int64_t{15}) +
+                         static_cast<int64_t>(reinterpret_cast<uintptr_t>(stream + s_lo[r]) & 15);
+      s_at[r] = at + len <= stage_cap ? at : -1;
+      run = s_at[r] < 0 ? run : at + len;
+    }
   }
-  uint8_t* sym = reinterpret_cast<uint8_t*>(smem + kDecodeTables * 256);
-  if (table) {
-    for (int c = threadIdx.x; c < count * 256; c += kThreads) {
-      const uint32_t* t = smem + (c >> 8) * 256;
-      uint8_t* dst = sym + (c >> 8) * kProbScale;
-      const uint32_t slot0 = static_cast<uint32_t>(c & 255) * 16;
-      int s = rank_of(t, slot0);
+  __syncthreads();
+  for (int r = 0; r < count; ++r) {
+    if (s_at[r] < 0) continue;
+    const uint8_t* from = stream + s_lo[r];
+    uint8_t* to = stage + s_at[r];
+    const int64_t len = s_hi[r] - s_lo[r];
+    const int64_t head = (16 - static_cast<int64_t>(reinterpret_cast<uintptr_t>(from) & 15)) & 15;
+    const int64_t words = len > head ? (len - head) >> 4 : 0;
+    const int64_t body = head + 16 * words;  // [head, body): whole words
+    if (threadIdx.x < head && threadIdx.x < len) to[threadIdx.x] = __ldg(from + threadIdx.x);
+    for (int64_t j = body + threadIdx.x; j < len; j += kThreads) to[j] = __ldg(from + j);
+    const uint4* src4 = reinterpret_cast<const uint4*>(from + head);
+    uint4* dst4 = reinterpret_cast<uint4*>(to + head);
+#pragma unroll 4
+    for (int64_t j = threadIdx.x; j < words; j += kThreads) dst4[j] = __ldg(src4 + j);
+  }
+  // each thread fills a run of 16-slot chunks of blob threadIdx.x / (256 /
+  // count): the first slot by a binary search, the next ones by a search
+  // again only where a symbol's range ends (one load where the next symbol
+  // takes over; a binary search past a run of frequency-0 symbols)
+  {
+    const int tpb = kThreads / count;  // threads a blob
+    const int rb = threadIdx.x / tpb;
+    const uint32_t span = 16 * ((256 + tpb - 1) / tpb);  // slots a thread
+    const uint32_t lo = static_cast<uint32_t>(threadIdx.x % tpb) * span;
+    const uint32_t hi = lo + span < kProbScale ? lo + span : kProbScale;
+    if (rb < count && lo < hi) {
+      const uint32_t* t = tab + rb * 256;
+      uint8_t* dst = sym + rb * kProbScale;
+      int s = rank_in(t, lo, 0, 255);
+      uint32_t end = s < 255 ? (t[s + 1] & 0xFFFFu) : kProbScale;
+      for (uint32_t at = lo; at < hi; at += 16) {
+        uint32_t w[4] = {0, 0, 0, 0};
 #pragma unroll
-      for (uint32_t q = 0; q < 16; ++q) {
-        while (s < 255 && (t[s + 1] & 0xFFFFu) <= slot0 + q) ++s;
-        dst[slot0 + q] = static_cast<uint8_t>(s);
+        for (int q = 0; q < 16; ++q) {
+          const uint32_t slot = at + q;
+          if (slot >= end) {
+            ++s;
+            if (s < 255 && (t[s + 1] & 0xFFFFu) <= slot) s = rank_in(t, slot, s + 1, 255);
+            end = s < 255 ? (t[s + 1] & 0xFFFFu) : kProbScale;
+          }
+          w[q >> 2] |= static_cast<uint32_t>(s) << (8 * (q & 3));
+        }
+        *reinterpret_cast<uint4*>(dst + at) = make_uint4(w[0], w[1], w[2], w[3]);
       }
     }
   }
@@ -1101,19 +1136,16 @@ __global__ void __launch_bounds__(kThreads) rans_decode_kernel(
   start = start < 0 ? 0 : (start > n_stream ? n_stream : start);
   end = end < start ? start : (end > n_stream ? n_stream : end);
   const uint8_t* src = stream + start;
-  if (stage_lo >= 0) {  // read the staged copy, inside the staged range
-    start = start < stage_lo ? stage_lo : (start > stage_hi ? stage_hi : start);
-    end = end < start ? start : (end > stage_hi ? stage_hi : end);
-    src = stage + (start - stage_lo);
+  if (s_at[r] >= 0) {  // read the staged copy, inside the blob's staged range
+    const int64_t lo = s_lo[r], hi = s_hi[r];
+    start = start < lo ? lo : (start > hi ? hi : start);
+    end = end < start ? start : (end > hi ? hi : end);
+    src = stage + s_at[r] + (start - lo);
   }
   const int64_t steps = (n - lane + L - 1) / L;
   const uint32_t x = static_cast<uint32_t>(states[g]);
-  uint8_t* dst = out + m[3] + lane;
-  if (table) {
-    decode_lane<true>(src, end - start, x, steps, L, smem + r * 256, sym + r * kProbScale, dst);
-  } else {
-    decode_lane<false>(src, end - start, x, steps, L, smem + r * 256, nullptr, dst);
-  }
+  decode_lane(src, end - start, x, steps, L, tab + r * 256, sym + r * kProbScale,
+              out + m[3] + lane);
 }
 
 }  // namespace rans
@@ -1204,10 +1236,10 @@ extern "C" int agc_rans_write(const uint8_t* data, int64_t n_data, const int64_t
   return static_cast<int>(cudaGetLastError());
 }
 
-// A batch of B blobs: stream: u8[n_stream], every lane's bytes; lane_off: i64[lanes + 1]; states: i64[lanes] (u32 values); freqs:
-// i32[B, 256];
+// A batch of B blobs: stream: u8[n_stream], every lane's bytes; lane_off:
+// i64[lanes + 1]; states: i64[lanes] (u32 values); freqs: i32[B, 256];
 // meta: i64[B, 4] (n, L, first lane, output offset); sel: i32[B] blob
-// indices in work order; work: i32[n_work, 4] (mode, first index into sel,
+// indices in work order; work: i32[n_work, 3] (first index into sel,
 // blobs, first lane); out: the blobs' symbols at their offsets. The
 // wrapper checks meta, sel and work against each other before the launch.
 extern "C" int agc_rans_decode(const uint8_t* stream_bytes, int64_t n_stream,

@@ -25,10 +25,9 @@ Which engine runs where:
   (``blob_cap``); the host downloads the offsets, then the blobs' bytes,
   and slices them. ``rans_decode`` decodes a batch of blobs in one launch,
   one thread a lane, by a schedule of work rows made on the host
-  (``_decode_rows``): 256 lanes of a large blob a block, up to 16 small
-  blobs of one tier a block; each blob's symbols come from its slot table
-  in shared memory (or, where the schedule asks for it, a rank search of
-  its cumulative frequencies).
+  (``_decode_rows``): 256 lanes of a large blob a block, up to 8 small
+  blobs of one tier a block; a symbol comes from the blob's 4096-slot
+  table in shared memory, and the row's stream bytes are staged there.
 - CPU tensors (``device="cpu"``): their plain PyTorch versions
   (``rans_tables_plain``: bincounts and ``quantize_plain``, the same
   closed form of ``quantize_freqs`` as torch ops across parts;
@@ -595,13 +594,7 @@ def code_flush(data: torch.Tensor, meta: torch.Tensor, chunks: torch.Tensor,
 # ---------------------------------------------------------------------------
 
 
-_RANK_MODE, _TABLE_MODE = 0, 1  # csrc/rans.cu's decode modes
-_DECODE_BLOBS, _DECODE_TABLES = 16, 4  # blobs a rank- / table-mode block at most
-# the lane tiers that decode through slot tables: all of them. On an H100
-# they won at every tier of chip_smoke.py's synthetic batch (2-3x), and
-# lost to the rank search on its phase-10 batch of short 8- and 64-lane
-# blobs; chip_smoke.py times both modes a tier
-TABLE_MIN_LANES = 1
+_DECODE_BLOBS = 8  # csrc/rans.cu's kDecodeBlobs: blobs a decode block at most
 
 
 def _check_decode_meta(meta, n_lanes: int, n_freqs: int) -> None:
@@ -621,13 +614,12 @@ def _check_decode_meta(meta, n_lanes: int, n_freqs: int) -> None:
     _require(n_freqs == len(meta), "rans_decode: freqs must hold a row a blob")
 
 
-def _decode_rows(meta: np.ndarray, table_min_lanes: int = TABLE_MIN_LANES):
+def _decode_rows(meta: np.ndarray):
     """``rans_decode``'s schedule: (sel int32[B], the blobs in work order;
-    work int32[W, 4] rows (mode, first index into sel, blobs, first
-    lane)). Tiers from the largest: a row a 256-lane slice of a 256- or
-    1024-lane blob; smaller blobs of one tier packed into a row, 256 /
-    max(L, 16) of them, at most 4 in table mode. Tiers of table_min_lanes
-    lanes and more decode through slot tables, the rest by rank search."""
+    work int32[W, 3] rows (first index into sel, blobs, first lane)).
+    Tiers from the largest: a row a 256-lane slice of a 256- or 1024-lane
+    blob; smaller blobs of one tier packed into a row, 256 / max(L, 16) of
+    them, at most 8."""
     lanes = meta[:, 1]
     sel, rows = [], []
     first = 0
@@ -635,22 +627,20 @@ def _decode_rows(meta: np.ndarray, table_min_lanes: int = TABLE_MIN_LANES):
         idx = np.flatnonzero(lanes == n_lanes)
         if not len(idx):
             continue
-        mode = _TABLE_MODE if n_lanes >= table_min_lanes else _RANK_MODE
         if n_lanes >= _BLOCK_LANES:
             per = n_lanes // _BLOCK_LANES
             r = np.arange(len(idx) * per)
-            rows.append(np.stack([np.full_like(r, mode), first + r // per, np.ones_like(r),
-                                  (r % per) * _BLOCK_LANES], axis=1))
+            rows.append(np.stack([first + r // per, np.ones_like(r), (r % per) * _BLOCK_LANES],
+                                 axis=1))
         else:
-            per = min(_BLOCK_LANES // max(n_lanes, 16),
-                      _DECODE_TABLES if mode == _TABLE_MODE else _DECODE_BLOBS)
+            per = min(_BLOCK_LANES // max(n_lanes, 16), _DECODE_BLOBS)
             at = np.arange(0, len(idx), per)
-            rows.append(np.stack([np.full_like(at, mode), first + at,
-                                  np.minimum(per, len(idx) - at), np.zeros_like(at)], axis=1))
+            rows.append(np.stack([first + at, np.minimum(per, len(idx) - at),
+                                  np.zeros_like(at)], axis=1))
         sel.append(idx)
         first += len(idx)
     return (np.concatenate(sel).astype(np.int32),
-            np.concatenate(rows).astype(np.int32).reshape(-1, 4))
+            np.concatenate(rows).astype(np.int32).reshape(-1, 3))
 
 
 def rans_decode_plain(stream: torch.Tensor, lane_off: torch.Tensor, states: torch.Tensor,
@@ -697,19 +687,16 @@ def rans_decode_plain(stream: torch.Tensor, lane_off: torch.Tensor, states: torc
 
 
 def rans_decode(stream: torch.Tensor, lane_off: torch.Tensor, states: torch.Tensor,
-                freqs: torch.Tensor, meta: np.ndarray,
-                table_min_lanes: int = TABLE_MIN_LANES) -> torch.Tensor:
+                freqs: torch.Tensor, meta: np.ndarray) -> torch.Tensor:
     """Decode a batch of blobs in one launch.
 
     stream: uint8[S], every lane's stream back to back; lane_off:
     int64[lanes + 1] their offsets; states: int64[lanes] the final encoder
     states (uint32 values); freqs: int32[B, 256]; meta: int64[B, 4] on the
     host, a row a blob (n, L = lanes_for(n), first lane, output offset),
-    as ``blob_tensors`` makes them; table_min_lanes: the lane tiers that
-    decode through slot tables (the schedule's choice, ``_decode_rows``).
-    Returns uint8[sum n], each blob's symbols at its offset. A malformed
-    meta is refused before the launch; a lane reads only inside its
-    lane_off range, clamped to the stream."""
+    as ``blob_tensors`` makes them. Returns uint8[sum n], each blob's
+    symbols at its offset. A malformed meta is refused before the launch;
+    a lane reads only inside its lane_off range, clamped to the stream."""
     _require(stream.dim() == 1 and stream.dtype == torch.uint8,
              "rans_decode: stream must be uint8[S]")
     _require(states.dim() == 1 and states.dtype == torch.int64,
@@ -723,7 +710,7 @@ def rans_decode(stream: torch.Tensor, lane_off: torch.Tensor, states: torch.Tens
         return rans_decode_plain(stream, lane_off, states, freqs, meta)
     _check_cuda("rans_decode", stream, lane_off, states, freqs)
     dev = stream.device
-    sel, work = _decode_rows(meta, table_min_lanes)
+    sel, work = _decode_rows(meta)
     meta_d, sel_d, work_d = (torch.from_numpy(a).to(dev) for a in (meta, sel, work))
     out = torch.empty(int(meta[-1, 0] + meta[-1, 3]), dtype=torch.uint8, device=dev)
     with torch.cuda.device(dev):

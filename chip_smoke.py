@@ -42,7 +42,10 @@ Phases (any failure exits non-zero before the result line):
    without a set and with the chr-scale pool's 55.6 M singletons (their
    set_table built, held against its plain version and timed, its bytes
    and spill printed, and isin_sorted on the same codes timed beside the
-   lookups); match_estimate (the match layer's
+   lookups, with torch.take's random-read rate at 16 MB and at the
+   table's bytes, the lookups with the spill path cut, and set_table's
+   peak device memory at the set a pool of _POOL_CARD_MAX positions
+   would give); match_estimate (the match layer's
    estimate of (segment row, candidate group) pairs) at key_len 16 and 17,
    strides 4, 8 and 16, on rows of invalid keys only, hits in the first
    and last probe block, a run that starts right after the kernel's tile
@@ -68,8 +71,8 @@ Phases (any failure exits non-zero before the result line):
    count refused, and rans_decode (a batch of blobs a launch) on every
    coded blob of the flush and the coded forms of the cases the coder
    escapes (all five lane tiers) in one launch against its plain version
-   and the inputs, each tier alone with slot tables and with the rank
-   search, each blob alone through decompress_device;
+   and the inputs, each tier alone, each blob alone through
+   decompress_device;
 4. the main path: a chr-scale create (one 64 Mbase reference contig with
    repeat families + 2 resequenced samples, default parameters) through
    agc_tpu_torch.core.compressor.create_archive(device="cuda"), with the
@@ -146,7 +149,7 @@ Phases (any failure exits non-zero before the result line):
    tables against quantize_freqs, up to 4096 coded blobs decoded on the
    card through decompress_device (a launch each), then in one rans_decode
    launch against its plain version, timed against the 4096 launches and
-   beside the sum of their bounds, each tier in both symbol modes; the
+   beside the sum of their bounds, each tier alone; the
    same for a synthetic batch of 4096 compressible parts of 1 to 300,000
    bytes (every lane tier; also under --rans-only); the kernels timed at
    the largest
@@ -1507,11 +1510,10 @@ def coded_blob(np, E, data: bytes) -> bytes:
     return bytes(out + b"".join(streams))
 
 
-def decode_batch(torch, D, dev, blobs: list, table_min_lanes=None) -> list:
+def decode_batch(torch, D, dev, blobs: list) -> list:
     """blobs through one rans_decode launch (blob_tensors, then slices)."""
     done, args = D.blob_tensors(blobs, dev)
-    kw = {} if table_min_lanes is None else {"table_min_lanes": table_min_lanes}
-    return D._decoded(done, D.rans_decode(*args, **kw), args[4])
+    return D._decoded(done, D.rans_decode(*args), args[4])
 
 
 def rans_cases(np) -> list:
@@ -1621,8 +1623,8 @@ def rans_kernels(np, torch, D, E, dev, results) -> None:
           "encode_batch differs from the host coder")
     # rans_decode: every coded blob of the flush, and the coded forms of
     # the cases the coder escapes (the 1- and 8-lane tiers), in one batch;
-    # then each tier in a batch of its own in both symbol modes, and each
-    # coded blob alone through decompress_device
+    # then each tier in a batch of its own, and each coded blob alone
+    # through decompress_device
     small = [c for c in live if len(c) < 1024]
     dec_in = blobs + [coded_blob(np, E, c) for c in small]
     dec_want = live + small
@@ -1636,9 +1638,8 @@ def rans_kernels(np, torch, D, E, dev, results) -> None:
     for tier in dec_tiers:
         pick = [(b, c) for b, c in zip(dec_in, dec_want)
                 if E.lanes_for(len(c)) == tier and not b[1] & E._RAW_FLAG]
-        for tml in (tier, 2048):  # its slot tables, then the rank search
-            check(decode_batch(torch, D, dev, [b for b, _ in pick], tml) == [c for _, c in pick],
-                  f"rans_decode of the {tier}-lane blobs (table_min_lanes {tml}) disagrees")
+        check(decode_batch(torch, D, dev, [b for b, _ in pick]) == [c for _, c in pick],
+              f"rans_decode of the {tier}-lane blobs alone disagrees")
     n_dec = sum(d is None for d in done)
     check(all(D.decompress_device(b, len(c), DEVICE) == c for b, c in zip(dec_in, dec_want)),
           "decompress_device does not give a case's input")
@@ -1651,7 +1652,7 @@ def rans_kernels(np, torch, D, E, dev, results) -> None:
           f"code_flush with no host sync, {n_bad} malformed chunk lists refused and the flush "
           f"after each right, rans_encode without its lane count refused; "
           f"rans_decode: {n_dec} coded blobs of tiers {dec_tiers} decoded to their inputs in "
-          f"one launch, each tier alone in both symbol modes, each blob alone, "
+          f"one launch, each tier alone, each blob alone, "
           f"max_abs_err {dec_err}")
     for name, replaces, err in (
             ("rans_tables", "agc_tpu/ops/device_rans.py:242", tab_err),
@@ -1837,7 +1838,7 @@ def decode_timing(np, torch, D, dev, results, card, blobs: list, payloads: list,
     """rans_decode of a batch of coded blobs in one launch against its plain
     version and the payloads, timed with CUDA events beside the sum of the
     blobs' bounds, and the same blobs in one launch each; then each lane
-    tier's blobs alone in both symbol modes (slot tables, rank search).
+    tier's blobs alone.
     key "" writes the row's ms, plain_ms and bound; "synthetic_" writes
     them under that prefix."""
     done, args = D.blob_tensors(blobs, dev)
@@ -1861,13 +1862,10 @@ def decode_timing(np, torch, D, dev, results, card, blobs: list, payloads: list,
         pick = [b for b, m in zip(blobs, meta[:, 1].tolist()) if m == tier]
         counts[tier] = len(pick)
         targs = D.blob_tensors(pick, dev)[1]
-        for mode, tml in (("table", tier), ("rank", 2048)):
-            calls[f"{tier} {mode}"] = (
-                lambda targs=targs, tml=tml: D.rans_decode(*targs, table_min_lanes=tml), kernel)
+        calls[f"{tier}"] = (lambda targs=targs: D.rans_decode(*targs), kernel)
     split = rans_split(torch, calls)
     dev_ms = {name: got and got["rans_decode_kernel"] for name, got in split.items()}
-    tiers = {tier: {"blobs": c, "table_kernel_ms": dev_ms[f"{tier} table"],
-                    "rank_kernel_ms": dev_ms[f"{tier} rank"]} for tier, c in counts.items()}
+    tiers = {tier: {"blobs": c, "kernel_ms": dev_ms[f"{tier}"]} for tier, c in counts.items()}
     rd[f"{key}ms" if key else "ms"] = one
     rd[f"{key}kernel_ms" if key else "kernel_ms"] = dev_ms["batch"]
     rd[f"{key}plain_ms" if key else "plain_ms"] = plain
@@ -1883,7 +1881,7 @@ def decode_timing(np, torch, D, dev, results, card, blobs: list, payloads: list,
     print(f"rans_decode ({key or 'the run'}'s batch: {shape}): one launch {one:.4f} ms a call, "
           f"kernel {opt_ms(dev_ms['batch'])} ms ({share} of the bound), {len(blobs)} launches "
           f"{each:.4f} ms, plain {plain:.4f} ms, bound {bnd[0]:.6f} ms ({bnd[1]}), max_abs_err "
-          f"{e}; each tier's blobs alone, kernel ms with slot tables / rank search: "
+          f"{e}; each tier's blobs alone, kernel ms: "
           f"{json.dumps(tiers)} ({card})")
 
 
@@ -2459,7 +2457,48 @@ def main() -> int:
     results["set_table"]["kernel_ms"] = sk and sum(sk[n] for n in SET_KERNELS)
     print("set_table and kmer_dir_rc with the set split by torch.profiler (device ms a call): "
           + json.dumps(split) + f" ({card})")
-    del sti
+    # what holds the lookups: the card's random-read rate, torch.take of an
+    # int64 a position from 16 MB (in L2) and from a table of the set
+    # table's bytes; and the lookups with the spill path cut (the second
+    # table and the tail emptied), what the spill costs them
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED)
+    take = {}
+    for nbytes in (16 << 20, sti.nbytes):
+        table = torch.zeros(nbytes // 8, dtype=torch.int64, device=dev)
+        at = torch.randint(0, table.numel(), (len(ref),), device=dev, generator=gen)
+        take[nbytes] = cuda_ms(torch, lambda: torch.take(table, at), 5)
+        del table, at
+    cut = ck.SetTable(sti.first, ck.set_table(singles[:0]).second, sti.tail[:0], singles)
+    r["member_spill_cut_ms"] = cuda_ms(torch, lambda: ck.kmer_dir_rc(cpacked, k, cut), 5)
+    # -f discovery builds a set and scans the reference once: build + scan
+    r["member_build_and_scan_ms"] = results["set_table"]["ms"] + r["member_ms"]
+    print(f"random reads: torch.take of {len(ref)} int64 "
+          + ", ".join(f"from {b} bytes {ms:.4f} ms ({len(ref) / ms / 1e6:.2f} G a second)"
+                      for b, ms in take.items())
+          + f"; kmer_dir_rc with the spill path cut {r['member_spill_cut_ms']:.4f} ms; "
+          f"set_table + one scan {r['member_build_and_scan_ms']:.4f} ms ({card})")
+    del sti, cut
+    # set_table's peak device memory at the set a pool of _POOL_CARD_MAX
+    # positions would give (phase 3's singleton share of it): sorted
+    # distinct values made on the card, the set itself not counted
+    n_big = int(len(singles) / len(ref) * cmod.Compressor._POOL_CARD_MAX)
+    big = torch.randint(1, 1 << 33, (n_big,), device=dev, generator=gen).cumsum_(0)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    stb = ck.set_table(big)
+    torch.cuda.synchronize()
+    big_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() - base
+    results["set_table"].update(card_max_values=n_big, card_max_table_bytes=stb.nbytes,
+                                card_max_peak_bytes=peak, card_max_build_s=big_s)
+    print(f"set_table at _POOL_CARD_MAX's set ({n_big} values, {8 * n_big} bytes): "
+          f"{stb.nbytes} table bytes, peak device memory of the build {peak} bytes beside the "
+          f"set, {big_s:.4f} s ({card})")
+    del stb, big
+    torch.cuda.empty_cache()
     g = ck.greedy_walk(flat, starts, reals, pool, seg, cap, index=idx)
     gp = ck.greedy_walk_plain(flat, starts, reals, pool, seg, cap)
     e = max_abs_err(torch, g, gp)

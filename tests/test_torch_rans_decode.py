@@ -4,8 +4,9 @@ version) against the host coder's ``entropy.decompress`` and agc_tpu's
 edges, single-symbol blobs, blobs with frequency-1 symbols, and batches
 that mix all tiers with empty blobs and raw escapes. Also held here: the
 decode's schedule (``_decode_rows``), every lane of every blob covered
-exactly once by the kernel's mapping of its work rows, and the refusal of
-a malformed meta before any decode.
+exactly once by the kernel's mapping of its work rows, models of the
+kernel's slot table fill (against agc_tpu's rank) and of its stream
+staging, and the refusal of a malformed meta before any decode.
 """
 
 import numpy as np
@@ -95,9 +96,10 @@ def test_tier_edges_one_blob_a_batch(n):
 
 
 def test_mixed_tiers_in_every_schedule_mode():
-    """The same batch, many blobs of each tier (more than a row holds), with
-    the plain version given each table threshold the kernel's schedule
-    takes."""
+    """The same batch, many blobs of each tier (more than a row holds),
+    decoded whole and each tier in a batch of its own, so that every kind
+    of work row the kernel's schedule makes is decoded beside others and
+    alone."""
     rng = np.random.default_rng(11)
     sizes = np.concatenate([rng.integers(1, 64, 70), rng.integers(64, 1024, 40),
                             rng.integers(1024, 8192, 9), rng.integers(8192, 65536, 3),
@@ -106,16 +108,19 @@ def test_mixed_tiers_in_every_schedule_mode():
     payloads = [rng.integers(0, int(rng.integers(1, 17)), int(n), dtype=np.uint8).tobytes()
                 for n in sizes]
     blobs = [coded_blob(p) if len(p) < 1024 else E.compress(p) for p in payloads]
-    for t in (1, 8, 64, 256, 2048):
-        assert _decode_batch(blobs, table_min_lanes=t) == payloads
+    assert _decode_batch(blobs) == payloads
+    tiers = [E.lanes_for(len(p)) for p in payloads]
+    for t in (1, 8, 64, 256, 1024):
+        pick = [i for i, x in enumerate(tiers) if x == t]
+        assert _decode_batch([blobs[i] for i in pick]) == [payloads[i] for i in pick]
 
 
 def _lanes_of_rows(meta, sel, work):
     """(blob, lane) of every thread that decodes, as the kernel maps its
     work rows: a row's blobs split the 256 threads evenly."""
     seen = []
-    for mode, first, count, lane0 in work.tolist():
-        assert 1 <= count <= (D._DECODE_TABLES if mode == D._TABLE_MODE else D._DECODE_BLOBS)
+    for first, count, lane0 in work.tolist():
+        assert 1 <= count <= D._DECODE_BLOBS
         per = THREADS // count
         for t in range(THREADS):
             r = t // per
@@ -129,22 +134,150 @@ def _lanes_of_rows(meta, sel, work):
     return seen
 
 
-@pytest.mark.parametrize("table_min_lanes", [1, 8, 64, 256, 2048])
-def test_schedule_covers_every_lane_once(table_min_lanes):
-    rng = np.random.default_rng(table_min_lanes)
+def _schedule_meta(seed: int):
+    rng = np.random.default_rng(seed)
     n = np.concatenate([rng.integers(1, 64, 300), rng.integers(64, 1024, 77),
                         rng.integers(1024, 8192, 13), rng.integers(8192, 65536, 5),
                         rng.integers(65536, 1 << 20, 4), [1, 63, 64, 1023, 1024, 8191,
                                                           8192, 65535, 65536]])
     rng.shuffle(n)
     lanes = D._lanes_np(n)
-    meta = np.stack([n, lanes, np.cumsum(lanes) - lanes, np.cumsum(n) - n], axis=1)
-    sel, work = D._decode_rows(meta, table_min_lanes)
-    assert sorted(sel.tolist()) == list(range(len(n)))
-    modes = {int(lanes[sel[f]]): m for m, f, _c, _l in work.tolist()}
-    assert modes == {t: int(t >= table_min_lanes) for t in (1, 8, 64, 256, 1024)}
+    return np.stack([n, lanes, np.cumsum(lanes) - lanes, np.cumsum(n) - n], axis=1)
+
+
+@pytest.mark.parametrize("seed", [1, 8, 64, 256, 2048])
+def test_schedule_covers_every_lane_once(seed):
+    meta = _schedule_meta(seed)
+    lanes = meta[:, 1]
+    sel, work = D._decode_rows(meta)
+    assert sorted(sel.tolist()) == list(range(len(meta)))
+    # a row holds one tier: a 256-lane slice, or 256 / max(L, 16) blobs
+    for first, count, lane0 in work.tolist():
+        tier = {int(lanes[sel[first + r]]) for r in range(count)}
+        assert len(tier) == 1
+        (t,) = tier
+        assert count == 1 if t >= THREADS else (count <= THREADS // max(t, 16) and lane0 == 0)
     seen = _lanes_of_rows(meta, sel, work)
     assert len(seen) == len(set(seen)) == int(lanes.sum())
+
+
+def _rank(freqs: np.ndarray, slots: np.ndarray) -> np.ndarray:
+    """agc_tpu's symbol of a slot: sum(cum[1:256] <= slot)."""
+    cum = np.concatenate([[0], np.cumsum(freqs)])
+    return (cum[None, 1:256] <= slots[:, None]).sum(axis=1)
+
+
+def slot_table_model(freqs: np.ndarray, count: int) -> np.ndarray:
+    """The kernel's slot table (csrc/rans.cu, rans_decode_kernel) in a row
+    of count blobs, 256 // count threads a blob: a thread fills a run of
+    16-slot chunks (the last thread's cut at 4096, none past it), the first
+    slot's symbol by a binary search of cum (rank_in), the next ones' by
+    one more symbol where the symbol's range ends, and a binary search
+    again where that one's range has ended too."""
+    cum = np.concatenate([[0], np.cumsum(freqs)])
+
+    def rank_in(slot, lo, hi):
+        while lo < hi:
+            mid = (lo + hi) >> 1
+            if cum[mid + 1] <= slot:
+                lo = mid + 1
+            else:
+                hi = mid
+        return lo
+
+    out = np.full(E.PROB_SCALE, -1, dtype=np.int64)
+    tpb = THREADS // count  # threads a blob
+    span = 16 * -(-256 // tpb)  # slots a thread
+    for lo in range(0, tpb * span, span):
+        if lo >= E.PROB_SCALE:
+            continue
+        s = rank_in(lo, 0, 255)
+        end = cum[s + 1] if s < 255 else E.PROB_SCALE
+        for slot in range(lo, min(lo + span, E.PROB_SCALE)):
+            if slot >= end:
+                s += 1
+                if s < 255 and cum[s + 1] <= slot:
+                    s = rank_in(slot, s + 1, 255)
+                end = cum[s + 1] if s < 255 else E.PROB_SCALE
+            out[slot] = s
+    return out
+
+
+def _freq_cases() -> dict:
+    rng = np.random.default_rng(5)
+    cases = {"uniform": np.full(256, 16), "one symbol": np.eye(256, dtype=np.int64)[200] * 4096,
+             "first and last": np.zeros(256, dtype=np.int64)}
+    cases["first and last"][[0, 255]] = [1, 4095]
+    ones = np.zeros(256, dtype=np.int64)
+    ones[rng.choice(256, 200, replace=False)] = 1
+    ones[int(np.flatnonzero(ones == 0)[0])] = 4096 - 200
+    cases["frequency-1 symbols"] = ones
+    # the alphabet of a create's coded parts: text digits, a few letters and
+    # 255, with long runs of frequency-0 symbols between
+    text = np.zeros(256, dtype=np.int64)
+    text[[33, 44, 46, *range(48, 58), 65, 66, 67, 68, 255]] = rng.integers(1, 500, 18)
+    cases["digits and 255"] = E.quantize_freqs(text)
+    for i in range(6):
+        alpha = int(rng.integers(2, 257))
+        counts = np.zeros(256, dtype=np.int64)
+        counts[rng.choice(256, alpha, replace=False)] = (rng.random(alpha) ** 4 * 1e5).astype(
+            np.int64) + 1
+        cases[f"quantized {i}"] = E.quantize_freqs(counts)
+    return cases
+
+
+@pytest.mark.parametrize("case", ["uniform", "one symbol", "first and last", "frequency-1 symbols",
+                                  "digits and 255"] + [f"quantized {i}" for i in range(6)])
+def test_slot_table_equals_rank(case):
+    freqs = np.asarray(_freq_cases()[case], dtype=np.int64)
+    assert freqs.sum() == E.PROB_SCALE
+    slots = np.arange(E.PROB_SCALE)
+    for count in range(1, D._DECODE_BLOBS + 1):
+        assert np.array_equal(slot_table_model(freqs, count), _rank(freqs, slots))
+
+
+SMEM, BLOB_BYTES = 44 << 10, 5120  # csrc/rans.cu's kDecodeBytes, kBlobBytes
+
+
+def test_stage_holds_every_staged_lane():
+    """The kernel's staging (rans_decode_kernel): a row's blobs' byte
+    ranges placed back to back, each at an offset of its alignment in the
+    stream, in the shared bytes its tables leave while they fit; every
+    lane of a staged blob must read its whole range there, none past the
+    stage, for every alignment of the stream."""
+    rng = np.random.default_rng(17)
+    payloads = [rng.integers(0, int(rng.integers(2, 17)), int(n), dtype=np.uint8).tobytes()
+                for n in np.exp(rng.uniform(0, np.log(200_000), 300)).astype(np.int64)]
+    blobs = [coded_blob(p) if len(p) < 1024 else E.compress(p) for p in payloads]
+    _done, (stream, lane_off, _states, _freqs, meta) = D.blob_tensors(blobs, CPU)
+    off = lane_off.numpy()
+    size = stream.numel()
+    sel, work = D._decode_rows(meta)
+    n_staged = 0
+    for base in range(16):  # the stream's address mod 16
+        for first, count, lane0 in work.tolist():
+            cap = SMEM - count * BLOB_BYTES
+            ranges, at, run = [], [], 0
+            for r in range(count):
+                _n, lanes, g, _o = meta[sel[first + r]]
+                nl = min(lanes - lane0, THREADS)
+                lo = min(max(off[g + lane0], 0), size)
+                hi = min(max(off[g + lane0 + nl], lo), size)
+                ranges.append((lo, hi))
+                a = -(-run // 16) * 16 + (base + lo) % 16
+                assert (a - (base + lo)) % 16 == 0
+                at.append(a if a + hi - lo <= cap else -1)
+                run = run if at[-1] < 0 else a + hi - lo
+            assert run <= cap
+            for r, (lo, hi) in enumerate(ranges):
+                if at[r] < 0:
+                    continue
+                n_staged += 1
+                _n, lanes, g, _o = meta[sel[first + r]]
+                for lane in range(lane0, min(lanes, lane0 + THREADS)):
+                    start, end = off[g + lane], off[g + lane + 1]
+                    assert lo <= start <= end <= hi
+    assert n_staged > 0
 
 
 def _meta_cases(meta):
