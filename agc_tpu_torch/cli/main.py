@@ -7,8 +7,9 @@ src/app/application.{h,cpp}):
     create append getcol getset getctg listref listset listctg info
 
 ``create`` and ``append`` take ``--device`` (default ``cuda``; ``cpu``
-runs the kernels' plain PyTorch versions); ``--shards`` above 1 raises
-until the multi-device creates are ported (ROADMAP A.5).
+runs the kernels' plain PyTorch versions); ``create --shards N`` runs
+the sharded creates of ``parallel/`` (``--shard-workers`` thread,
+process or torchdist) on that device.
 """
 
 from __future__ import annotations
@@ -77,6 +78,14 @@ def build_parser() -> argparse.ArgumentParser:
         "--shards", type=int, default=1,
         help="data-parallel shards (multi-host scale-out; output archives "
         "extract identically for any shard count)",
+    )
+    p.add_argument(
+        "--shard-workers", choices=("thread", "process", "torchdist"),
+        default="thread",
+        help="shard execution: threads (share this process's device), "
+        "processes (independent runtimes, each opening the device), or "
+        "torchdist (a torch.distributed process group with collective "
+        "splitter discovery; gloo, or NCCL where each rank has a card)",
     )
 
     p = sub.add_parser("append", help="append FASTA files to an existing archive")
@@ -251,10 +260,26 @@ def _dispatch(args) -> int:
                 params.min_match_len = _clamp(args.min_match_len, 15, 32)
                 params.segment_size = _clamp(args.segment_size, 100, 1_000_000)
                 if getattr(args, "shards", 1) > 1:
-                    raise NotImplementedError(
-                        "not ported to agc_tpu_torch yet: --shards and the "
-                        "distributed creates (parallel/, ROADMAP A.5)"
-                    )
+                    # cmd_line is not threaded into the sharded paths:
+                    # they always write v3 archives, and v3 collections
+                    # persist no cmd-line history in either tool (the
+                    # plain-create cmd_line is equally dropped at
+                    # serialization; only v1/v2 appends store it)
+                    if args.shard_workers == "torchdist":
+                        from ..parallel.torchdist import create_archive_torchdist
+
+                        create_archive_torchdist(
+                            out_archive, args.inputs, params,
+                            n_procs=args.shards, device=args.device,
+                        )
+                    else:
+                        from ..parallel.distributed import create_archive_sharded
+
+                        create_archive_sharded(
+                            out_archive, args.inputs, params,
+                            n_shards=args.shards, worker=args.shard_workers,
+                            device=args.device,
+                        )
                 else:
                     create_archive(
                         out_archive, args.inputs, params, cmd_line=cmd_line,

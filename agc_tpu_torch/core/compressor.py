@@ -153,6 +153,13 @@ class _PendingSeg:
     # anchor tables for the anchor LZ mode, computed on the device by the
     # store's prepass (None = the host twin computes them / classic rule)
     anchor_tab: object = None
+    # shard-shipped LZ delta: (delta_bytes, ref_hash) computed against
+    # the boot-broadcast group reference; the writer uses it only after
+    # verifying its group's actual reference hash (parallel/distributed)
+    delta_hint: object = None
+    # boot-precompressed reference blob: (blob, meta, ref_hash); used by
+    # the group's FIRST member iff its bytes hash-match (zstd profile)
+    ref_blob_hint: object = None
 
     def materialize(self) -> bytes:
         # race-tolerant (the store worker and a matcher-side ensure_ref
@@ -386,6 +393,18 @@ class Compressor:
         prefetch: bool = True,
         device="cuda",
     ):
+        self._init_state(params, device)
+        self.writer = ArchiveWriter(out_path)
+        if in_path is not None:
+            self._init_append(in_path, prefetch)
+        else:
+            assert reference_file is not None, "create mode needs a reference file"
+            self._init_create(reference_file)
+
+    def _init_state(self, params: CompressorParams | None, device) -> None:
+        """Every attribute of the engine but its archive writer. The
+        sharded creates build engines without opening an archive
+        (parallel/distributed.py) and start from this same state."""
         # private copy: append mode overwrites k/l/b/s/profile from the
         # input archive, and that must not leak into the caller's object
         self.p = _dc_replace(params) if params is not None else CompressorParams()
@@ -395,7 +414,6 @@ class Compressor:
             # validate BEFORE the writer opens (and truncates) out_path
             raise ValueError(f"unknown archive profile {self.p.profile!r}")
         self.device = resolve_device(device)
-        self.writer = ArchiveWriter(out_path)
         self.collection: CollectionV3
         self.map_segments: dict[tuple[int, int], int] = {PK_EMPTY: 0}
         self.terminators: dict[int, list[int]] = {}
@@ -461,13 +479,10 @@ class Compressor:
         # producer so the reference file is read+converted once, not twice
         self._ref_codes: list[tuple[str, np.ndarray]] | None = None
         self._ref_codes_ready = threading.Event()
+        # the sharded merge's boot-precompressed reference parts, by
+        # splitter pair (parallel/distributed.py); empty elsewhere
+        self._inv_ref_blobs: dict = {}
         self.timers = StageTimers()
-
-        if in_path is not None:
-            self._init_append(in_path, prefetch)
-        else:
-            assert reference_file is not None, "create mode needs a reference file"
-            self._init_create(reference_file)
 
     # ==================================================================
     # create / append initialization
@@ -1071,6 +1086,14 @@ class Compressor:
             with self.timers.stage("match_contig", len(codes)):
                 self._process_contig(sname, cid, codes, hits=hits)
 
+    def _concat_file_begin(self, fname: str) -> None:
+        """Hook: a -c create is about to ingest ``fname``'s contigs.
+        No-op here; the sharded capture keys its records by file so the
+        merge can replay the global -c contig stream (distributed.py)."""
+
+    def _concat_contig_registered(self, fname: str, cid: str) -> None:
+        """Hook: a -c create registered contig ``cid`` of ``fname``."""
+
     def add_sample_files(self, sample_files: list[tuple[str, str]]) -> bool:
         """reference: CAGCCompressor::AddSampleFiles (agc_compressor.cpp:2118).
 
@@ -1085,6 +1108,11 @@ class Compressor:
             n_in_batch = self.processed_samples % self.p.pack_cardinality
             for _fname, path in sample_files:
                 self.collection.reset_prev_sample_name()
+                # capture hook (sharded -c): key captured segments by the
+                # input file PATH, unique even when two inputs share a
+                # basename, so the merge can replay the global contig
+                # stream in file order (parallel/distributed.py)
+                self._concat_file_begin(path)
                 try:
                     contig_iter = list(read_contigs_raw(path))
                 except OSError:
@@ -1099,6 +1127,7 @@ class Compressor:
                             file=sys.stderr,
                         )
                         continue
+                    self._concat_contig_registered(path, cid)
                     batch.append(("", cid, preprocess_raw_contig(raw, cid)))
                     n_in_batch += 1
                     if n_in_batch >= self.p.pack_cardinality:
@@ -1404,10 +1433,10 @@ class Compressor:
                 )
 
     def _exchange_new_splitters(self, pending: list[int]) -> list[int]:
-        """Hook for distributed shards (ROADMAP A.5): replace the locally
-        discovered pending new splitters with the cross-shard union (the
-        analogue of the reference's in-band ``new_splitters`` token,
-        agc_compressor.cpp:1187-1237). Single host: identity."""
+        """Hook for distributed shards (parallel/torchdist.py): replace
+        the locally discovered pending new splitters with the cross-shard
+        union (the analogue of the reference's in-band ``new_splitters``
+        token, agc_compressor.cpp:1187-1237). Single host: identity."""
         return pending
 
     def _merge_new_splitters(self) -> None:
@@ -1703,9 +1732,17 @@ class Compressor:
         kmer_front: Kmer,
         kmer_back: Kmer,
         device_hint: tuple[list, list[int]] | None = None,
+        delta_hint: tuple | None = None,
     ) -> int:
         """Returns 1 when the segment was split into two parts, else 0.
-        ``device_hint``: this segment's result of the estimate prepass."""
+        ``device_hint``: this segment's result of the estimate prepass.
+
+        ``delta_hint``: (pk, delta_bytes, ref_hash) shipped by a shard
+        (sharded create): the LZ delta of this segment against the
+        boot-broadcast reference of group ``pk``. Attached to the
+        pending segment only when the matcher's final pk equals the
+        hint's; the store verifies the group reference hash before
+        using the bytes, so a stale hint can never change the archive."""
         pk = PK_EMPTY
         store_rc = False
         segment_rc: np.ndarray | None = None
@@ -1823,13 +1860,21 @@ class Compressor:
             return arr.astype(np.uint8, copy=False).tobytes()
 
         def pending(part):
+            hint = (
+                delta_hint[1:]
+                if delta_hint is not None and delta_hint[0] == pk
+                else None
+            )
+            rb_hint = self._inv_ref_blobs.get(pk)
             if store_rc and segment_rc is None:
                 return _PendingSeg(
-                    sample, contig, part, None, store_rc, raw=segment
+                    sample, contig, part, None, store_rc, raw=segment,
+                    delta_hint=hint, ref_blob_hint=rb_hint,
                 )
             return _PendingSeg(
                 sample, contig, part,
                 _bytes(segment_rc if store_rc else segment), store_rc,
+                delta_hint=hint, ref_blob_hint=rb_hint,
             )
 
         if not found:
@@ -2405,7 +2450,11 @@ class Compressor:
                 if gid < NO_RAW_GROUPS:
                     in_group_id = seg.add_raw(data)
                 else:
-                    in_group_id = seg.add(data, anchor_tab=it.anchor_tab)
+                    in_group_id = seg.add(
+                        data, anchor_tab=it.anchor_tab,
+                        delta_hint=it.delta_hint,
+                        ref_blob_hint=it.ref_blob_hint,
+                    )
                 placements.append(
                     (it.sample, it.contig, it.part_no, gid, in_group_id,
                      it.is_rc, len(data))

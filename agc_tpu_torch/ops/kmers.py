@@ -25,6 +25,7 @@ in the flipped int64 convention of ``ops/u64.py``.
 from __future__ import annotations
 
 import atexit
+import threading
 import time
 
 import numpy as np
@@ -662,15 +663,19 @@ class DaemonPool:
 
 
 _XFER_POOL = None
+_XFER_LOCK = threading.Lock()
 
 
 def _xfer_pool():
     """One daemon worker for pack + upload + scan + download, so the
-    matcher thread keeps working while a batch is on the device."""
+    matcher thread keeps working while a batch is on the device. Shared
+    by every engine of the process (thread shards of a sharded create
+    too), so it is made under a lock."""
     global _XFER_POOL
-    if _XFER_POOL is None:
-        _XFER_POOL = DaemonPool(1, "agc-xfer")
-    return _XFER_POOL
+    with _XFER_LOCK:
+        if _XFER_POOL is None:
+            _XFER_POOL = DaemonPool(1, "agc-xfer")
+        return _XFER_POOL
 
 
 class ScanBatcher:

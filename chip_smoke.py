@@ -161,7 +161,24 @@ Phases (any failure exits non-zero before the result line):
    byte-equal; phase 4's input with the card's coder and with the host
    coder (archives equal part for part); phase 6's collection, create and
    then append, on the card and on the CPU (plain versions, in a process
-   of its own beside the card's), archives equal part for part.
+   of its own beside the card's), archives equal part for part;
+11. the sharded, mesh and distributed creates (agc_tpu_torch/parallel/):
+   (a) phase 7's input with --shards 2 on thread workers
+   (create_archive_sharded, device="cuda"): wall, Mbases/s, the boot /
+   shards / merge split (AGC_TPU_SHARD_TIMINGS), peak device memory,
+   launch counts, the archive within 2% of phase 7's, every sample
+   extracted byte-equal; (b) phase 4's input with 2 process shards (each
+   spawned worker opening the card) and with 2 thread shards, archives
+   equal part for part; (c) the mesh create over the card's one-device
+   mesh on phase 4's input, equal part for part to phase 4's plain create,
+   its kmer_dir_rc calls kept and held against the plain version, one
+   call timed at the mesh's row shape beside its bound; (d) the torchdist
+   create: 2 processes sharing the card (gloo) on phase 4's input (the
+   single create's splitters, every sample byte-equal, the thread shards'
+   archive), and on phase 6's collection one process over NCCL (in this
+   process) and two over gloo, both equal part for part to a CPU run of
+   two processes of its own; the exchange-and-reduce at phase 4's pool in
+   a world of one over NCCL, torch.sort of the pool beside it.
 
 Each phase prints the seconds since the start when it ends. The line
 before the last is a JSON object with one entry per kernel; the
@@ -1371,7 +1388,7 @@ def match_layer(np, torch, ck, cm, M, tk, cmod, Compressor, CompressorParams, cr
         os.environ["AGC_TPU_DEVICE_MATCH"] = "1"
         total_launches = 0
         try:
-            for label, params, lfiles in (
+            runs = (
                 ("phase 4's input", CompressorParams(), files4),
                 ("segment 1000", CompressorParams(segment_size=1000), cfiles),
                 ("-a -f 0.01", CompressorParams(adaptive_compression=True,
@@ -1380,9 +1397,13 @@ def match_layer(np, torch, ck, cm, M, tk, cmod, Compressor, CompressorParams, cr
                 ("structural -f 0.2 -k 17 -l 15 -s 12000",
                  CompressorParams(fallback_frac=0.2, kmer_length=17, min_match_len=15,
                                   segment_size=12000), vfiles),
-            ):
-                a, b = os.path.join(tmp, "card.agc"), os.path.join(tmp, "cpu.agc")
-                on_cpu = cpu_create(b, lfiles, params)
+            )
+            # every run's CPU create starts at once (the run's time limit)
+            on_cpus = [cpu_create(os.path.join(tmp, f"cpu{i}.agc"), lfiles, params)
+                       for i, (_label, params, lfiles) in enumerate(runs)]
+            for i, (label, params, lfiles) in enumerate(runs):
+                a, b = os.path.join(tmp, "card.agc"), os.path.join(tmp, f"cpu{i}.agc")
+                on_cpu = on_cpus[i]
                 keep[0] = label == "structural, segment 8000"
                 pairs[0] = 0
                 for name in calls:
@@ -2090,6 +2111,275 @@ def rans_phase(np, torch, ck, D, E, CompressorParams, create_archive, append_arc
         os.environ.pop("AGC_TPU_RANS_DEVICE", None)
 
 
+# Phase 11: the sharded, mesh and distributed creates (agc_tpu_torch/
+# parallel/) on the card. Each path's launches are counted from 0 just
+# before it; the torchdist runs of other processes are checked by their
+# archives.
+_TORCHDIST_CPU = (
+    "import json, sys\n"
+    "from agc_tpu_torch.core.compressor import CompressorParams\n"
+    "from agc_tpu_torch.parallel.torchdist import create_archive_torchdist\n"
+    "a = json.loads(sys.argv[1])\n"
+    "create_archive_torchdist(a['out'], a['files'], CompressorParams(), n_procs=a['n'], "
+    "device='cpu', timeout_s=900)\n"
+)
+
+
+def fasta_body(path: str) -> bytes:
+    """The bases of a one-contig FASTA file."""
+    with open(path, "rb") as f:
+        return b"".join(line.rstrip(b"\n") for line in f if not line.startswith(b">"))
+
+
+def splitters_of(reader_cls, path: str) -> bytes:
+    reader = reader_cls(path)
+    try:
+        return reader.get_part("splitters", 0)[0]
+    finally:
+        reader.close()
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def launched(ck, names, label: str) -> dict:
+    """The launch counts of the path just driven; fails when one of
+    ``names`` was never launched."""
+    counts = dict(ck.LAUNCHES)
+    for name in names:
+        check(counts[name] > 0, f"{label} never launched {name}")
+    return {k: v for k, v in counts.items() if v}
+
+
+def parallel_phase(np, torch, ck, u64, CompressorParams, create_archive, ArchiveReader, AGCFile,
+                   results, programs, card, tmp, ref4, files4, cfiles, wfiles, names, wseqs,
+                   w_size: int, w_wall: float, stamp) -> None:
+    """Phase 11: the sharded, mesh and distributed creates on the card. See
+    the module docstring."""
+    import contextlib
+    import io
+
+    import torch.distributed as dist
+
+    from agc_tpu_torch.parallel import sharding as ts
+    from agc_tpu_torch.parallel import torchdist as td
+    from agc_tpu_torch.parallel.distributed import create_archive_sharded
+
+    alpha = np.frombuffer(ALPHA, dtype=np.uint8)
+    dev = torch.device(DEVICE)
+
+    # (a) thread shards at full width: phase 7's input, 2 shards
+    sh_out = os.path.join(tmp, "sharded.agc")
+    wtotal = sum(len(c) for cs in wseqs.values() for c in cs)
+    os.environ["AGC_TPU_SHARD_TIMINGS"] = "1"
+    captured = io.StringIO()
+    ck.reset_launches()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base_mem = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    try:
+        with contextlib.redirect_stderr(captured):
+            create_archive_sharded(sh_out, wfiles, CompressorParams(), n_shards=2,
+                                   worker="thread", device=DEVICE)
+        torch.cuda.synchronize()
+    finally:
+        del os.environ["AGC_TPU_SHARD_TIMINGS"]
+        sys.stderr.write(captured.getvalue())
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() - base_mem
+    la = launched(ck, ("kmer_canon", "walk_index", "greedy_walk", "member_mix", "dir_mix"),
+                  "the thread-sharded whole-genome create")
+    split = [json.loads(line.split(" ", 1)[1]) for line in captured.getvalue().splitlines()
+             if line.startswith("AGC_TPU_SHARD_TIMINGS ")]
+    check(len(split) == 1, "the sharded create printed no AGC_TPU_SHARD_TIMINGS line")
+    size = os.path.getsize(sh_out)
+    print(f"thread-sharded whole-genome create (2 shards): {wtotal} bases in {wall:.4f} s = "
+          f"{wtotal / wall / 1e6:.2f} Mbases/s ({card}); phase 7's create {w_wall:.4f} s; "
+          f"boot / shards / merge: {json.dumps(split[0])}; peak device memory {peak} bytes; "
+          f"archive {size} bytes against phase 7's {w_size} ({size / w_size:.5f}); launches {la}")
+    check(size <= w_size * 1.02, "the 2-shard archive is over 2% larger than phase 7's")
+    for name in ("kmer_canon", "member_mix", "dir_mix"):
+        results[name]["sharded_launches"] = la[name]
+    t0 = time.perf_counter()
+    with AGCFile(sh_out) as agc:
+        for sname, contigs in wseqs.items():
+            for cname, seq in zip(names, contigs):
+                check(agc.GetCtgSeq(sname, cname).encode("latin-1") == alpha[seq].tobytes(),
+                      f"{cname}@{sname} of the sharded archive does not extract byte-equal")
+    print(f"thread-sharded extract: {len(wseqs)} samples x {len(names)} contigs byte-equal "
+          f"({time.perf_counter() - t0:.1f} s)")
+    os.unlink(sh_out)
+    stamp("11a")
+
+    # (b) process shards, each spawned worker opening the card, against
+    # thread shards on phase 4's input
+    thr4, proc4 = os.path.join(tmp, "thr4.agc"), os.path.join(tmp, "proc4.agc")
+    total4 = sum(os.path.getsize(f) for f in files4)
+    walls = {}
+    for label, out, worker in (("thread", thr4, "thread"), ("process", proc4, "process")):
+        ck.reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        create_archive_sharded(out, files4, CompressorParams(), n_shards=2, worker=worker,
+                               device=DEVICE)
+        torch.cuda.synchronize()
+        walls[label] = time.perf_counter() - t0
+        # the process shards' scans run in the workers: here only the
+        # boot's discovery and the inventory pass over the reference
+        lb = launched(ck, ("kmer_canon", "scan_fused"), f"the {label}-sharded create")
+        print(f"{label}-sharded create of phase 4's input (2 shards): {walls[label]:.4f} s "
+              f"({card}); launches in this process {lb}")
+    equal = same_archive(ArchiveReader, thr4, proc4)
+    print(f"process shards against thread shards: archives equal part for part: {equal}")
+    check(equal, "the process-sharded archive differs from the thread-sharded one")
+    stamp("11b")
+
+    # (c) the mesh create over the card's one-device mesh, against phase
+    # 4's plain create; its first 16 kmer_dir_rc calls kept and held
+    # against the plain version after the run
+    plain4, mesh4 = os.path.join(tmp, "plain4.agc"), os.path.join(tmp, "mesh4.agc")
+    create_archive(plain4, files4, CompressorParams(), device=DEVICE)
+    kept = []
+    real = ts.kmer_dir_rc
+
+    def keeping(packed, k, index=None):
+        out = real(packed, k, index)
+        if len(kept) < 16:
+            kept.append(((packed, k, index), out))
+        return out
+
+    ts.kmer_dir_rc = keeping
+    ck.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    try:
+        ts.mesh_create_archive(mesh4, files4, CompressorParams(), mesh=ts.make_mesh(),
+                               device=DEVICE)
+        torch.cuda.synchronize()
+    finally:
+        ts.kmer_dir_rc = real
+    mwall = time.perf_counter() - t0
+    lc = launched(ck, ("kmer_canon", "kmer_dir_rc", "set_table"), "the mesh create")
+    equal = same_archive(ArchiveReader, mesh4, plain4)
+    print(f"mesh create of phase 4's input over {ts.make_mesh()}: {mwall:.4f} s ({card}); "
+          f"launches {lc}; archive equal to the plain create's part for part: {equal}")
+    check(equal, "the mesh archive differs from the plain create's")
+    err = 0
+    for args, got in kept:
+        want = ck.kmer_dir_rc_plain(*args)
+        err = max(err, max(max_abs_err(torch, a, b) for a, b in zip(got, want)))
+    print(f"mesh kmer_dir_rc: {len(kept)} kept calls at {[tuple(a[0].shape) for a, _ in kept]} "
+          f"(packed rows) against kmer_dir_rc_plain on the card: max_abs_err {err}")
+    check(err == 0 and kept, f"the mesh's kmer_dir_rc disagrees with its plain version ({err})")
+    (packed, k, index), _out = kept[0]
+    n_set = index.values.numel()
+    walk_bytes = 8 * n_set + 4 * ((1 << ck.index_bits(n_set)) + 1)
+    r = results["kmer_dir_rc"]
+    r["mesh_launches"] = lc["kmer_dir_rc"]
+    r["max_abs_err"] = max(r["max_abs_err"], err)
+    r["mesh_ms"] = cuda_ms(torch, lambda: ck.kmer_dir_rc(packed, k, index), 10)
+    r["mesh_plain_ms"] = cuda_ms(torch, lambda: ck.kmer_dir_rc_plain(packed, k, index), 2)
+    r["mesh_bound_ms"] = dir_rc_bound(packed.numel(), walk_bytes)[0]
+    print(f"kmer_dir_rc at the mesh's row shape {tuple(packed.shape)} with the {n_set}-splitter "
+          f"set: {r['mesh_ms']:.4f} ms, plain {r['mesh_plain_ms']:.4f} ms, bound "
+          f"{r['mesh_bound_ms']:.4f} ms ({card})")
+    del kept, packed, index, _out
+    torch.cuda.empty_cache()
+    stamp("11c")
+
+    # (d) torchdist. Two processes sharing the card (gloo) on phase 4's
+    # input: the splitters of phase 4's single create, every sample
+    # byte-equal, the archive equal to the thread shards' of (b)
+    # phase 6's CPU run (two gloo processes of their own, compared below)
+    # starts first, beside the card's runs (the run's time limit)
+    cpu6, nccl6, gloo6 = (os.path.join(tmp, f"{n}6.agc") for n in ("cpu", "nccl", "gloo"))
+    proc = subprocess.Popen([sys.executable, "-c", _TORCHDIST_CPU,
+                             json.dumps(dict(out=cpu6, files=cfiles, n=2))],
+                            cwd=REPO, stdout=subprocess.DEVNULL, stderr=subprocess.PIPE)
+    CHILDREN.append(proc)
+    on_cpu = (proc, time.perf_counter())
+    td4 = os.path.join(tmp, "td4.agc")
+    t0 = time.perf_counter()
+    td.create_archive_torchdist(td4, files4, CompressorParams(), n_procs=2, device=DEVICE,
+                                timeout_s=900)
+    twall = time.perf_counter() - t0
+    same_split = splitters_of(ArchiveReader, td4) == splitters_of(ArchiveReader, plain4)
+    equal = same_archive(ArchiveReader, td4, thr4)
+    print(f"torchdist create of phase 4's input, 2 processes on one card (gloo), beside the "
+          f"CPU run: {twall:.4f} s ({card}); splitters equal to the single create's: {same_split}; archive equal to "
+          f"the thread shards': {equal}")
+    check(same_split, "torchdist's splitters differ from the single create's")
+    check(equal, "torchdist's archive differs from the thread shards'")
+    with AGCFile(td4) as agc:
+        for path in files4:
+            sname = os.path.splitext(os.path.basename(path))[0]
+            check(agc.GetCtgSeq(sname, "chr1").encode("latin-1") == fasta_body(path),
+                  f"sample {sname} of the torchdist archive does not extract byte-equal")
+    print(f"torchdist extract: {len(files4)} samples byte-equal")
+    for path in (thr4, proc4, plain4, mesh4, td4):
+        os.unlink(path)
+
+    # phase 6's 12-contig collection: one process over NCCL (in this
+    # process: a world of one), two over gloo, against the CPU run
+    check(td.choose_backend(1, DEVICE) == "nccl", "one process on the card did not choose NCCL")
+    ck.reset_launches()
+    t0 = time.perf_counter()
+    td.run_worker(0, 1, f"127.0.0.1:{free_port()}", nccl6, cfiles, CompressorParams(),
+                  device=DEVICE, backend="nccl", timeout_s=900)
+    torch.cuda.synchronize()
+    nwall = time.perf_counter() - t0
+    ld = launched(ck, ("kmer_canon", "kmer_dir_rc", "set_table", "scan_fused"),
+                  "the NCCL torchdist create")
+    results["kmer_dir_rc"]["torchdist_launches"] = ld["kmer_dir_rc"]
+    t0 = time.perf_counter()
+    td.create_archive_torchdist(gloo6, cfiles, CompressorParams(), n_procs=2, device=DEVICE,
+                                timeout_s=900)
+    gwall = time.perf_counter() - t0
+    t_cpu = cpu_done(on_cpu)
+    eq_n, eq_g = same_archive(ArchiveReader, nccl6, cpu6), same_archive(ArchiveReader, gloo6, cpu6)
+    print(f"torchdist on phase 6's collection: NCCL, 1 process {nwall:.4f} s (launches {ld}); "
+          f"gloo, 2 processes on the card {gwall:.4f} s; CPU, 2 processes {t_cpu:.2f} s; "
+          f"archives equal to the CPU's part for part: NCCL {eq_n}, gloo {eq_g} ({card})")
+    check(eq_n and eq_g, "torchdist's card archives differ from the CPU's")
+
+    # the exchange-and-reduce at phase 4's pool (the reference's canonical
+    # k-mers) in a world of one over NCCL, torch.sort of the pool beside it
+    from agc_tpu_torch.ops import kmers as tk
+
+    pool = tk.collect_kmers(ref4, 31, dev)
+    store = dist.TCPStore("127.0.0.1", free_port(), 1, is_master=True)
+    dist.init_process_group("nccl", store=store, rank=0, world_size=1)
+    try:
+        g = td._Group(0, 1, dev, dev)
+        m = td._pow2(pool.numel())
+        singles, dups = td._exchange_and_reduce_owned(g, [pool], m=m)
+        want = tk.candidate_tables(tk.sort_kmers(pool))
+        check(torch.equal(singles, want[0]) and torch.equal(dups, want[1]),
+              "the exchange-and-reduce disagrees with candidate_tables on the card")
+        ms = cuda_ms(torch, lambda: td._exchange_and_reduce_owned(g, [pool], m=m), 5)
+        sort_ms = cuda_ms(torch, lambda: torch.sort(pool), 5)
+    finally:
+        dist.destroy_process_group()
+    # the pool read once, the padded block exchanged (read and written),
+    # the two tables written
+    xbound = bound(8 * pool.numel() + 16 * m + 8 * (singles.numel() + dups.numel()), 0)
+    programs["exchange_and_reduce"] = dict(
+        ms=ms, bound_ms=xbound[0], bound_by=xbound[1], library_ms=sort_ms,
+        replaces="agc_tpu/parallel/jaxdist.py:149-222", shape=f"pool {pool.numel()}, m {m}")
+    print(f"exchange-and-reduce, world of one over NCCL, phase 4's pool of {pool.numel()} "
+          f"k-mers (m {m}): {ms:.4f} ms, torch.sort of the pool {sort_ms:.4f} ms, bound "
+          f"{xbound[0]:.4f} ms ({xbound[1]}); {singles.numel()} singletons, {dups.numel()} "
+          f"duplicated ({card})")
+    del pool, singles, dups, want
+    torch.cuda.empty_cache()
+
+
 def main() -> int:
     started = time.perf_counter()
     import numpy as np
@@ -2619,19 +2909,24 @@ def main() -> int:
             ])
         cbases = sum(len(b) for b in base)
         n_splits = {}
-        for label, params, pool_max in (
+        labels = (
             ("default", CompressorParams(), None),
             ("-c", CompressorParams(concatenated_genomes=True), None),
             ("segment 1000", CompressorParams(segment_size=1000), None),
             # a reference over _POOL_DEVICE_MAX: value-sampled discovery
             ("sampled + segment 1000", CompressorParams(segment_size=1000), 1 << 23),
-        ):
+        )
+        # every label's CPU create starts at once, beside the card's
+        # creates (the run's time limit)
+        on_cpus = [cpu_create(os.path.join(tmp, f"cpu{i}.agc"), cfiles, params, pool_max)
+                   for i, (_label, params, pool_max) in enumerate(labels)]
+        for i, (label, params, pool_max) in enumerate(labels):
             default_max = Compressor._POOL_DEVICE_MAX
             if pool_max is not None:
                 Compressor._POOL_DEVICE_MAX = pool_max
             try:
-                a, b = os.path.join(tmp, "card.agc"), os.path.join(tmp, "cpu.agc")
-                on_cpu = cpu_create(b, cfiles, params, pool_max)
+                a, b = os.path.join(tmp, "card.agc"), os.path.join(tmp, f"cpu{i}.agc")
+                on_cpu = on_cpus[i]
                 torch.cuda.synchronize()
                 t0 = time.perf_counter()
                 ctimes = create_archive(a, cfiles, params, device=DEVICE).times
@@ -2681,15 +2976,19 @@ def main() -> int:
         Compressor.determine_splitters = counting_determine
         cmod.set_table = sizing_set_table
         try:
-            for label, params, lfiles in (
+            runs = (
                 ("-a", CompressorParams(adaptive_compression=True, **stress), afiles),
                 ("-f 0.05", CompressorParams(fallback_frac=0.05, **stress), ffiles),
                 ("-a -f 0.01", CompressorParams(adaptive_compression=True,
                                                 fallback_frac=0.01, **stress), ffiles),
-            ):
+            )
+            # every run's CPU create starts at once (the run's time limit)
+            on_cpus = [cpu_create(os.path.join(tmp, f"cpu{i}.agc"), lfiles, params)
+                       for i, (_label, params, lfiles) in enumerate(runs)]
+            for i, (label, params, lfiles) in enumerate(runs):
                 discovered.clear()
-                a, b = os.path.join(tmp, "card.agc"), os.path.join(tmp, "cpu.agc")
-                on_cpu = cpu_create(b, lfiles, params)
+                a, b = os.path.join(tmp, "card.agc"), os.path.join(tmp, f"cpu{i}.agc")
+                on_cpu = on_cpus[i]
                 ck.reset_launches()
                 torch.cuda.synchronize()
                 t0 = time.perf_counter()
@@ -2760,6 +3059,7 @@ def main() -> int:
         wtimes = create_archive(wout, wfiles, CompressorParams(), device=DEVICE).times
         torch.cuda.synchronize()
         wwall = time.perf_counter() - t0
+        w_size = os.path.getsize(wout)
         wlaunch = dict(ck.LAUNCHES)
         for name in ("kmer_canon", "walk_index", "greedy_walk", "member_mix", "dir_mix"):
             check(wlaunch[name] > 0, f"the whole-genome create never launched {name}")
@@ -2872,6 +3172,12 @@ def main() -> int:
                    ArchiveReader, AGCFile, results, card, tmp, wfiles, names, wseqs, files,
                    cfiles)
         stamp("10")
+
+        # -- 11. the sharded, mesh and distributed creates -------------------
+        parallel_phase(np, torch, ck, u64, CompressorParams, create_archive, ArchiveReader,
+                       AGCFile, results, programs, card, tmp, ref, files, cfiles, wfiles,
+                       names, wseqs, w_size, wwall, stamp)
+        stamp("11")
     finally:
         for proc in CHILDREN:
             if proc.poll() is None:
@@ -2888,7 +3194,7 @@ def main() -> int:
             if key.startswith(("whole_genome", "chr_scale", "large_table", "member_",
                                "adaptive_", "anchor_", "old_count_", "flush_", "kernel_ms",
                                "synthetic_", "one_launch_", "tier_", "spill_",
-                               "table_bytes"))}}
+                               "table_bytes", "sharded_", "mesh_", "torchdist_"))}}
         for name, r in results.items()
     ]
     for name, r in results.items():

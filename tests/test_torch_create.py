@@ -247,6 +247,35 @@ def test_port_stands_alone(tmp_path):
             assert a.read() == b.read(), sample
 
 
+@pytest.mark.parametrize("workers", ["thread", "process", "torchdist"])
+def test_port_stands_alone_sharded(tmp_path, workers):
+    """With agc_tpu and jax blocked in this process AND in every process it
+    starts (a sitecustomize on PYTHONPATH installs the finder), the port's
+    CLI creates with --shards 2 --shard-workers {workers} on the CPU, and
+    the archive extracts byte-equal through the port."""
+    files = make_collection(tmp_path, random.Random(21), n_samples=2, contig_lens=(20000,))
+    site = tmp_path / "site"
+    site.mkdir()
+    (site / "sitecustomize.py").write_text(_BLOCK_REFERENCE)
+    out = str(tmp_path / "sharded.agc")
+    code = (
+        "import sys\n"
+        "import agc_tpu_torch\n"
+        "from agc_tpu_torch.cli.main import main\n"
+        f"assert main(['create', '--device', 'cpu', '--shards', '2', '--shard-workers', "
+        f"{workers!r}, '-s', '3000', '-o', {out!r}, *{[p for _, p in files]!r}]) == 0\n"
+        f"with agc_tpu_torch.AGCFile({out!r}) as agc:\n"
+        "    print(agc.GetCtgSeq('s1', 'c1'))\n"
+        "assert not [m for m in sys.modules if m.split('.')[0] in ('agc_tpu', 'jax')]\n"
+    )
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["PYTHONPATH"] = os.pathsep.join([str(site), REPO])
+    res = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, env=env, timeout=300)
+    assert res.returncode == 0, res.stderr[-2000:]
+    assert res.stdout.strip().encode() == _fasta_body(files[2][1], "c1")
+
+
 def test_chip_smoke_imports_only_the_port():
     """chip_smoke.py drives the port alone: no jax, no agc_tpu module and no
     bench helper may be imported by it directly."""
@@ -281,9 +310,15 @@ def test_cli_create_then_host_queries(tmp_path, device_match_off, capsys):
     assert main(["getctg", out, "c1@s0"]) == 0
     got = "".join(capsys.readouterr().out.split("\n")[1:]).encode()
     assert got == _fasta_body(files[1][1], "c1")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        main(["create", "--device", "cpu", "--shards", "2", "-o", out,
-              *[p for _, p in files]])
+    # --shards 2 runs the port's sharded create (thread workers); its
+    # archive is agc_tpu's sharded create's
+    from agc_tpu.parallel.distributed import create_archive_sharded as tpu_sharded
+
+    sharded, tpu_sh = str(tmp_path / "sharded.agc"), str(tmp_path / "tpu_sh.agc")
+    assert main(["create", "--device", "cpu", "--shards", "2", "-s", "3000", "-o", sharded,
+                 *[p for _, p in files]]) == 0
+    tpu_sharded(tpu_sh, [p for _, p in files], TpuParams(segment_size=3000), n_shards=2)
+    assert_same_archive(sharded, tpu_sh)
 
 
 def test_cuda_device_without_cuda_raises(tmp_path):
