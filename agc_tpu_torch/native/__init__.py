@@ -7,8 +7,14 @@ the source and flags, so nothing is written next to the source. When no
 toolchain is available the pure-Python implementations in
 ``agc_tpu_torch.core.lz`` are used instead (same token grammar, slower).
 
-agc_tpu's C-API library (``agc_capi.cpp``) is not part of the port yet
-(ROADMAP A.9).
+The C API (``agc.h``, ``agc_capi.cpp``: the reference's ``libagc`` ABI,
+decompression only) is linked with ``lz_native.cpp`` into
+``build/agc_tpu_torch/capi_<hash>/libagcnative.so``, with ``agc.h`` copied
+beside it, so that directory serves a C client as both ``-I`` and ``-L``
+(``get_capi_path``). ``agc_capi.cpp`` declares the three zstd functions
+it calls, and the library links ``-l:libzstd.so.1``, the runtime
+library's own name, so it builds where neither ``zstd.h`` nor the
+unversioned ``libzstd.so`` is installed.
 """
 
 from __future__ import annotations
@@ -16,17 +22,24 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import shutil
 import subprocess
 import threading
 
 _DIR = os.path.dirname(os.path.abspath(__file__))
 _SRC = os.path.join(_DIR, "lz_native.cpp")
+_CAPI_SRCS = [_SRC, os.path.join(_DIR, "agc_capi.cpp")]
+_CAPI_HEADER = os.path.join(_DIR, "agc.h")
+_CAPI_LINK = ["-l:libzstd.so.1"]
 BUILD_DIR = os.path.join(os.path.dirname(os.path.dirname(_DIR)), "build", "agc_tpu_torch")
 _FLAGS = ["-O3", "-std=c++17", "-shared", "-fPIC"]
 
 _lock = threading.Lock()
 _lib = None
 _tried = False
+_capi_lib = None
+_capi_tried = False
+_capi_error = None
 
 
 def _lib_path() -> str:
@@ -51,6 +64,99 @@ def _build(out: str) -> bool:
         return False
     except Exception:
         return False
+
+
+def _capi_dir() -> str:
+    h = hashlib.sha256(" ".join(_FLAGS + _CAPI_LINK).encode())
+    for src in (*_CAPI_SRCS, _CAPI_HEADER):
+        with open(src, "rb") as f:
+            h.update(f.read())
+    return os.path.join(BUILD_DIR, f"capi_{h.hexdigest()[:16]}")
+
+
+def _build_capi(out_dir: str) -> str | None:
+    """Compile the C API into ``out_dir``/libagcnative.so and copy agc.h
+    beside it; concurrent builds each write private temporary files.
+    Returns None, or g++'s error output."""
+    os.makedirs(out_dir, exist_ok=True)
+    tag = f"{os.getpid()}.{threading.get_ident()}.tmp"
+    header = os.path.join(out_dir, "agc.h")
+    lib = os.path.join(out_dir, "libagcnative.so")
+    cmd = ["g++", *_FLAGS, *_CAPI_SRCS, "-o", f"{lib}.{tag}", *_CAPI_LINK]
+    try:
+        res = subprocess.run(cmd, capture_output=True, text=True, timeout=240)
+    except (OSError, subprocess.TimeoutExpired) as e:
+        return f"{' '.join(cmd)}: {e}"
+    if res.returncode != 0:
+        return f"{' '.join(cmd)} exited {res.returncode}:\n{res.stderr}"
+    shutil.copyfile(_CAPI_HEADER, f"{header}.{tag}")
+    os.replace(f"{header}.{tag}", header)
+    os.replace(f"{lib}.{tag}", lib)
+    return None
+
+
+def get_capi_path() -> str | None:
+    """Build (at first use) and return the path of the C API's shared
+    library (the reference's libagc equivalent: agc_open, agc_get_ctg_seq,
+    ...); ``agc.h`` lies in the same directory. None when the build
+    failed: ``capi_build_error()`` then gives g++'s output."""
+    global _capi_tried, _capi_error
+    lib = os.path.join(_capi_dir(), "libagcnative.so")
+    with _lock:
+        if not os.path.exists(lib):
+            if _capi_tried:
+                return None
+            _capi_tried = True
+            _capi_error = _build_capi(os.path.dirname(lib))
+            if _capi_error is not None:
+                return None
+        return lib
+
+
+def capi_build_error() -> str | None:
+    """g++'s output of this process's failed C API build, or None."""
+    return _capi_error
+
+
+def get_capi():
+    """ctypes handle to the C API library (or None)."""
+    global _capi_lib
+    path = get_capi_path()
+    if path is None:
+        return None
+    with _lock:
+        if _capi_lib is not None:
+            return _capi_lib
+        try:
+            lib = ctypes.CDLL(path)
+        except OSError:
+            return None
+        lib.agc_open.restype = ctypes.c_void_p
+        lib.agc_open.argtypes = [ctypes.c_char_p, ctypes.c_int]
+        lib.agc_close.argtypes = [ctypes.c_void_p]
+        lib.agc_n_sample.argtypes = [ctypes.c_void_p]
+        lib.agc_n_ctg.argtypes = [ctypes.c_void_p, ctypes.c_char_p]
+        lib.agc_get_ctg_len.argtypes = [
+            ctypes.c_void_p, ctypes.c_char_p, ctypes.c_char_p,
+        ]
+        lib.agc_get_ctg_seq.argtypes = [
+            ctypes.c_void_p, ctypes.c_char_p, ctypes.c_char_p,
+            ctypes.c_int, ctypes.c_int, ctypes.c_char_p,
+        ]
+        lib.agc_reference_sample.restype = ctypes.c_void_p
+        lib.agc_reference_sample.argtypes = [ctypes.c_void_p]
+        lib.agc_list_sample.restype = ctypes.POINTER(ctypes.c_char_p)
+        lib.agc_list_sample.argtypes = [
+            ctypes.c_void_p, ctypes.POINTER(ctypes.c_int),
+        ]
+        lib.agc_list_ctg.restype = ctypes.POINTER(ctypes.c_char_p)
+        lib.agc_list_ctg.argtypes = [
+            ctypes.c_void_p, ctypes.c_char_p, ctypes.POINTER(ctypes.c_int),
+        ]
+        lib.agc_list_destroy.argtypes = [ctypes.POINTER(ctypes.c_char_p)]
+        lib.agc_string_destroy.argtypes = [ctypes.c_void_p]
+        _capi_lib = lib
+        return _capi_lib
 
 
 def get_lib():

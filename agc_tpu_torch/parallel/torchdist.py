@@ -42,6 +42,7 @@ from __future__ import annotations
 
 import argparse
 import base64
+import contextlib
 import datetime
 import os
 import pickle
@@ -336,6 +337,16 @@ def run_worker(
             "distributed create does not support concatenated mode (-c): "
             "its grouping is defined by a single global contig stream"
         )
+    with process_group(pid, n_procs, coordinator, device, backend, timeout_s) as (g, store):
+        _run(g, store, out_path, input_files, params)
+
+
+@contextlib.contextmanager
+def process_group(pid: int, n_procs: int, coordinator: str, device, backend: str,
+                  timeout_s: float = _TIMEOUT_S):
+    """Join the process group as rank ``pid`` of ``n_procs`` (rendezvous
+    on a ``TCPStore`` at ``coordinator``, process 0's host:port) and leave
+    it at the end; yields this rank's ``_Group`` and the store."""
     if backend not in ("gloo", "nccl"):
         raise ValueError(f"unknown backend {backend!r} (gloo or nccl)")
     device = resolve_device(device)
@@ -351,9 +362,8 @@ def run_worker(
     dist.init_process_group(backend, store=store, rank=pid, world_size=n_procs,
                             timeout=timeout,
                             device_id=device if backend == "nccl" else None)
-    g = _Group(pid, n_procs, device, device if backend == "nccl" else "cpu")
     try:
-        _run(g, store, out_path, input_files, params)
+        yield _Group(pid, n_procs, device, device if backend == "nccl" else "cpu"), store
     finally:
         dist.destroy_process_group()
 
@@ -406,8 +416,6 @@ def _run(g: _Group, store, out_path: str, input_files: list[str], params) -> Non
                           device=g.device)
         except BaseException:
             # never leave a footerless partial archive at the user's path
-            import contextlib
-
             with contextlib.suppress(OSError):
                 os.unlink(out_path)
             store.set("agc_merge_done", "failed")
@@ -472,12 +480,7 @@ def create_archive_torchdist(
     card r modulo the card count; the backend is ``choose_backend``'s. A
     worker that fails stops the others; the whole run waits at most
     ``timeout_s`` seconds."""
-    import socket
-
-    if coordinator is None:
-        with socket.socket() as s:
-            s.bind(("127.0.0.1", 0))
-            coordinator = f"127.0.0.1:{s.getsockname()[1]}"
+    coordinator = coordinator or local_coordinator()
     dev = resolve_device(device)
     backend = choose_backend(n_procs, dev)
     print(f"torchdist: {n_procs} processes, backend {backend}, device {dev.type}",
@@ -486,12 +489,7 @@ def create_archive_torchdist(
         pickle.dumps(params, protocol=pickle.HIGHEST_PROTOCOL)
     ).decode() if params is not None else ""
 
-    # the workers import this package from where this process found it
-    env = dict(os.environ)
-    root = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
-    env["PYTHONPATH"] = os.pathsep.join(
-        [root] + [p for p in env.get("PYTHONPATH", "").split(os.pathsep) if p])
-    procs = []
+    cmds = []
     for pid in range(n_procs):
         rank_dev = (f"cuda:{pid % torch.cuda.device_count()}"
                     if dev.type == "cuda" else "cpu")
@@ -508,9 +506,33 @@ def create_archive_torchdist(
         if blob:
             cmd += ["--params", blob]
         cmd += list(input_files)
-        procs.append(subprocess.Popen(cmd, env=env))
+        cmds.append(cmd)
+    run_processes(cmds, timeout_s)
+
+
+def local_coordinator() -> str:
+    """host:port of a free TCP port on this machine, for process 0's
+    rendezvous store."""
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return f"127.0.0.1:{s.getsockname()[1]}"
+
+
+def run_processes(cmds: list[list[str]], timeout_s: float) -> None:
+    """Start every command at once, each importing this package from where
+    this process found it, and wait for all of them: one that fails, or
+    the deadline of ``timeout_s`` seconds, stops the others and raises."""
+    env = dict(os.environ)
+    root = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+    env["PYTHONPATH"] = os.pathsep.join(
+        [root] + [p for p in env.get("PYTHONPATH", "").split(os.pathsep) if p])
+    procs = []
     deadline = time.monotonic() + timeout_s
     try:
+        for cmd in cmds:
+            procs.append(subprocess.Popen(cmd, env=env))
         while True:
             rc = [p.poll() for p in procs]
             if any(r not in (None, 0) for r in rc):

@@ -9,7 +9,9 @@
 Phases (any failure exits non-zero before the result line):
 
 1. environment: torch, the card, its power limit (nvidia-smi);
-2. build of the CUDA kernels from agc_tpu_torch/csrc (nvcc, sm_90a);
+2. build of the CUDA kernels from agc_tpu_torch/csrc (nvcc, sm_90a) and,
+   beside them, of the port's C API library (g++, agc_tpu_torch/native),
+   with the zstd library it linked;
 3. each kernel against its plain PyTorch version on the card at the
    shapes the main path gives it, outputs compared exactly (integer
    outputs: tolerance 0), both timed with CUDA events, beside the least
@@ -178,7 +180,21 @@ Phases (any failure exits non-zero before the result line):
    archive), and on phase 6's collection one process over NCCL (in this
    process) and two over gloo, both equal part for part to a CPU run of
    two processes of its own; the exchange-and-reduce at phase 4's pool in
-   a world of one over NCCL, torch.sort of the pool beside it.
+   a world of one over NCCL, torch.sort of the pool beside it, and the
+   padded all_gathers (_allgather_u64 at the largest size the NCCL create
+   gathered, _allgather_counts), with their calls in that create;
+12. the C API and the graft entry points: (a) phase 7's card-written
+   archive through the port's C library (agc_open with prefetching 1, then
+   0): every sample's contigs and lengths against the Decompressor's,
+   every contig of s0 whole and byte-equal (seconds and Mbases/s beside the
+   Python Decompressor on the same contigs), ranges at both ends of chr1
+   and across a segment boundary, -1 for unknown and ambiguous names; (b)
+   examples/example_agc_lib_c.c compiled with gcc against the port's
+   header and library and run on that archive; (c) graft_entry.entry()'s
+   flagship step on the card, equal to its CPU run with the example's 256
+   splitters and with 4,096 of the rows' own codes, its launches, the step
+   timed beside its bound and its plain version; (d)
+   graft_entry.dryrun_multichip(1) on the card.
 
 Each phase prints the seconds since the start when it ends. The line
 before the last is a JSON object with one entry per kernel; the
@@ -2328,11 +2344,28 @@ def parallel_phase(np, torch, ck, u64, CompressorParams, create_archive, Archive
     # phase 6's 12-contig collection: one process over NCCL (in this
     # process: a world of one), two over gloo, against the CPU run
     check(td.choose_backend(1, DEVICE) == "nccl", "one process on the card did not choose NCCL")
+    # the padded all_gathers of this run counted (those inside
+    # _allgather_u64 and the exchange included), and the sizes gathered
+    gathers = {"counts": 0, "u64": []}
+    real_counts, real_u64 = td._allgather_counts, td._allgather_u64
+
+    def counting_counts(g, value):
+        gathers["counts"] += 1
+        return real_counts(g, value)
+
+    def counting_u64(g, values):
+        gathers["u64"].append(values.numel())
+        return real_u64(g, values)
+
+    td._allgather_counts, td._allgather_u64 = counting_counts, counting_u64
     ck.reset_launches()
     t0 = time.perf_counter()
-    td.run_worker(0, 1, f"127.0.0.1:{free_port()}", nccl6, cfiles, CompressorParams(),
-                  device=DEVICE, backend="nccl", timeout_s=900)
-    torch.cuda.synchronize()
+    try:
+        td.run_worker(0, 1, f"127.0.0.1:{free_port()}", nccl6, cfiles, CompressorParams(),
+                      device=DEVICE, backend="nccl", timeout_s=900)
+        torch.cuda.synchronize()
+    finally:
+        td._allgather_counts, td._allgather_u64 = real_counts, real_u64
     nwall = time.perf_counter() - t0
     ld = launched(ck, ("kmer_canon", "kmer_dir_rc", "set_table", "scan_fused"),
                   "the NCCL torchdist create")
@@ -2364,8 +2397,29 @@ def parallel_phase(np, torch, ck, u64, CompressorParams, create_archive, Archive
               "the exchange-and-reduce disagrees with candidate_tables on the card")
         ms = cuda_ms(torch, lambda: td._exchange_and_reduce_owned(g, [pool], m=m), 5)
         sort_ms = cuda_ms(torch, lambda: torch.sort(pool), 5)
+        # the padded all_gathers at the largest size the NCCL create gathered
+        n_gather = min(max(gathers["u64"]), pool.numel())
+        vals = pool[:n_gather] ^ 1
+        check(torch.equal(td._allgather_u64(g, vals), vals),
+              "_allgather_u64 does not give back a world of one's values")
+        check(td._allgather_counts(g, 7).tolist() == [7], "_allgather_counts disagrees")
+        ag_ms = cuda_ms(torch, lambda: td._allgather_u64(g, vals), 5)
+        agc_ms = cuda_ms(torch, lambda: td._allgather_counts(g, 7), 5)
     finally:
         dist.destroy_process_group()
+    # the values read once and the gathered rows written once (8 bytes each)
+    for name, t, n_bytes, launches, shape in (
+            ("allgather_u64", ag_ms, 16 * n_gather, len(gathers["u64"]),
+             f"{n_gather} values, the largest of the NCCL create's {gathers['u64']}"),
+            ("allgather_counts", agc_ms, 16, gathers["counts"], "one int64")):
+        b = bound(n_bytes, 0)
+        programs[name] = dict(ms=t, bound_ms=b[0], bound_by=b[1], library_ms=None,
+                              launches=launches, shape=shape,
+                              replaces="agc_tpu/parallel/jaxdist.py:101-146")
+    print(f"padded all_gathers, world of one over NCCL: _allgather_u64 of {n_gather} values "
+          f"{ag_ms:.4f} ms (bound {programs['allgather_u64']['bound_ms']:.4f} ms), "
+          f"_allgather_counts {agc_ms:.4f} ms; calls in the NCCL create of phase 6's "
+          f"collection: {len(gathers['u64'])} and {gathers['counts']} ({card})")
     # the pool read once, the padded block exchanged (read and written),
     # the two tables written
     xbound = bound(8 * pool.numel() + 16 * m + 8 * (singles.numel() + dups.numel()), 0)
@@ -2376,8 +2430,178 @@ def parallel_phase(np, torch, ck, u64, CompressorParams, create_archive, Archive
           f"k-mers (m {m}): {ms:.4f} ms, torch.sort of the pool {sort_ms:.4f} ms, bound "
           f"{xbound[0]:.4f} ms ({xbound[1]}); {singles.numel()} singletons, {dups.numel()} "
           f"duplicated ({card})")
-    del pool, singles, dups, want
+    del pool, singles, dups, want, vals
     torch.cuda.empty_cache()
+
+
+# Phase 12: the C API (agc_tpu_torch/native: agc.h, agc_capi.cpp) on the
+# card's archive, and the graft entry points (agc_tpu_torch/
+# graft_entry.py) on the card.
+def scan_step_bound(n_packed: int, index_bytes: int) -> tuple[float, str]:
+    """entry()'s step (kmer_dir_rc with a set, then the min of the two
+    orientations) over n_packed bytes (2 positions each): 0.5 byte in and
+    10 out a position (the canonical code, the valid and member flags),
+    the set read once (index_bytes), 21 int32 operations a position."""
+    return bound(n_packed + 20 * n_packed + index_bytes, 42 * n_packed)
+
+
+def capi_phase(np, torch, Decompressor, lib, lib_dir: str, card: str, tmp: str, wout: str,
+               wseqs: dict, names: list, stamp) -> None:
+    """Phase 12a-b: phase 7's card-written archive read through the port's
+    C library, then the committed C example compiled and run on it."""
+    import ctypes
+
+    alpha = np.frombuffer(ALPHA, dtype=np.uint8)
+    d = Decompressor(wout)
+    try:
+        want_ref = d.get_reference_sample()
+        samples = d.list_samples(sorted_=False)
+        lists = {sm: [(c, d.get_contig_length(sm, c)) for c in d.list_contigs(sm)]
+                 for sm in samples}
+        # chr1@s0's segment boundaries: each segment starts k bases before
+        # the previous one ends
+        at, bounds = 0, []
+        for sg in d.collection.get_contig_desc("s0", "chr1")[1][:-1]:
+            at += sg.raw_length - d.kmer_length
+            bounds.append(at)
+    finally:
+        d.close()
+    at = next(b for b in bounds if b >= 50)
+    walls = {}
+    for prefetching in (1, 0):
+        h = lib.agc_open(wout.encode(), prefetching)
+        check(bool(h), f"agc_open failed on the card's archive (prefetching {prefetching})")
+        try:
+            n = ctypes.c_int(0)
+            arr = lib.agc_list_sample(h, ctypes.byref(n))
+            got = [arr[i].decode() for i in range(n.value)]
+            lib.agc_list_destroy(arr)
+            check(lib.agc_n_sample(h) == len(samples) and got == samples,
+                  f"the C library lists samples {got}, the Decompressor {samples}")
+            ref = lib.agc_reference_sample(h)
+            check(ctypes.string_at(ref).decode() == want_ref, "the C library's reference differs")
+            lib.agc_string_destroy(ref)
+            for sm, rows in lists.items():
+                arr = lib.agc_list_ctg(h, sm.encode(), ctypes.byref(n))
+                ctgs = [arr[i].decode() for i in range(n.value)]
+                lib.agc_list_destroy(arr)
+                lens = [lib.agc_get_ctg_len(h, sm.encode(), c.encode()) for c in ctgs]
+                check(list(zip(ctgs, lens)) == rows and lib.agc_n_ctg(h, sm.encode()) == len(rows),
+                      f"sample {sm}: the C library's contigs and lengths differ")
+            # every contig of s0 whole, byte-equal to its input
+            t0 = time.perf_counter()
+            for cname, seq in zip(names, wseqs["s0"]):
+                buf = ctypes.create_string_buffer(len(seq) + 1)
+                got_n = lib.agc_get_ctg_seq(h, b"s0", cname.encode(), -1, -1, buf)
+                check(got_n == len(seq) and buf.raw[:got_n] == alpha[seq].tobytes(),
+                      f"{cname}@s0 does not extract byte-equal through the C library")
+                del buf
+            walls[f"C, prefetching {prefetching}"] = time.perf_counter() - t0
+            # both ends of chr1 and across its first segment boundary
+            chr1 = wseqs["s0"][0]
+            for a, b in ((0, 99), (len(chr1) - 100, len(chr1) - 1), (at - 50, at + 50)):
+                buf = ctypes.create_string_buffer(b - a + 2)
+                check(lib.agc_get_ctg_seq(h, b"s0", b"chr1", a, b, buf) == b - a + 1
+                      and buf.value == alpha[chr1[a:b + 1]].tobytes(),
+                      f"chr1@s0[{a}, {b}] differs through the C library")
+            errors = [lib.agc_get_ctg_len(h, None, b"chr1"),  # in every sample
+                      lib.agc_get_ctg_len(h, b"no such sample", b"chr1"),
+                      lib.agc_get_ctg_len(h, b"s0", b"no such contig"),
+                      lib.agc_n_ctg(h, b"no such sample")]
+            check(errors == [-1] * 4, f"unknown or ambiguous names gave {errors}, not -1")
+        finally:
+            check(lib.agc_close(h) == 0, "agc_close failed")
+    total = sum(len(seq) for seq in wseqs["s0"])
+    d = Decompressor(wout)
+    try:
+        t0 = time.perf_counter()
+        for cname, seq in zip(names, wseqs["s0"]):
+            check(d.get_contig_seq("s0", cname) == alpha[seq].tobytes(),
+                  f"{cname}@s0 does not extract byte-equal through the Decompressor")
+        walls["Python Decompressor"] = time.perf_counter() - t0
+    finally:
+        d.close()
+    print(f"C API on phase 7's archive: {len(samples)} samples' contigs and lengths equal the "
+          f"Decompressor's, ranges and errors right; s0 whole ({len(names)} contigs, {total} "
+          "bases) byte-equal: " + "; ".join(f"{label} {w:.4f} s, {total / w / 1e6:.2f} Mbases/s"
+                                             for label, w in walls.items())
+          + f" (host of the card's machine; {card})")
+    stamp("12a")
+
+    exe = os.path.join(tmp, "example_agc_lib_c")
+    r = subprocess.run(["gcc", os.path.join(REPO, "examples", "example_agc_lib_c.c"),
+                        "-I", lib_dir, "-L", lib_dir, "-lagcnative", f"-Wl,-rpath,{lib_dir}",
+                        "-o", exe], capture_output=True, text=True, timeout=120)
+    check(r.returncode == 0, f"the C example does not compile: {r.stderr[-2000:]}")
+    t0 = time.perf_counter()
+    r = subprocess.run([exe, wout], capture_output=True, text=True, timeout=300)
+    check(r.returncode == 0, f"the C example exited {r.returncode}: {r.stderr[-2000:]}")
+    print(f"C example ({time.perf_counter() - t0:.2f} s):")
+    for line in r.stdout.splitlines():
+        print("  " + line)
+    check(f"reference sample: {want_ref}" in r.stdout.splitlines(),
+          "the C example does not name the archive's reference")
+    stamp("12b")
+
+
+def entry_phase(np, torch, ck, u64, results: dict, card: str, stamp) -> None:
+    """Phase 12c-d: graft_entry's flagship step on the card against its
+    CPU run, timed beside its bound, with its launches; then
+    dryrun_multichip(1)."""
+    from agc_tpu_torch import graft_entry as ge
+    from agc_tpu_torch.ops import kmers as tk
+    from agc_tpu_torch.parallel import sharding as ts
+
+    fn, args = ge.entry(DEVICE)
+    cpu_fn, _ = ge.entry("cpu")
+    want = cpu_fn(*args)
+    codes = np.unique(u64.to_u64(want[0][want[1]]))
+    own = np.sort(np.random.default_rng(SEED).choice(codes, 4096, replace=False))
+    want_own = cpu_fn(args[0], own)
+    ck.reset_launches()
+    got, got_own = fn(*args), fn(args[0], own)
+    torch.cuda.synchronize()
+    le = launched(ck, ("kmer_dir_rc", "set_table"), "entry()'s step")
+    for label, a, b in (("256 random splitters", got, want), ("4,096 own codes", got_own, want_own)):
+        check(all(torch.equal(x.cpu(), y) for x, y in zip(a, b)),
+              f"entry()'s step on the card differs from its CPU run ({label})")
+    hits = int(got_own[2].sum())
+    check(hits >= 4096, f"the own-code table gave {hits} member positions")
+    b_rows, n = args[0].shape
+    packed = torch.from_numpy(tk.pack4_np(args[0].reshape(-1)).reshape(b_rows, n // 2)).to(DEVICE)
+    index = ck.set_table(u64.from_u64(own, DEVICE))
+    step_ms = cuda_ms(torch, lambda: ts._scan_batch(packed, index, ge.K), 20)
+
+    def plain():
+        udir, urc, valid, member = ck.kmer_dir_rc_plain(packed, ge.K, index)
+        return torch.minimum(udir, urc), valid, member
+
+    plain_ms = cuda_ms(torch, plain, 3)
+    fn_ms = cuda_ms(torch, lambda: fn(args[0], own), 20)
+    sb = scan_step_bound(packed.numel(), 8 * len(own))
+    r = results["kmer_dir_rc"]
+    r.update(entry_launches=le["kmer_dir_rc"], entry_ms=step_ms, entry_plain_ms=plain_ms,
+             entry_bound_ms=sb[0], entry_fn_ms=fn_ms)
+    results["set_table"]["entry_launches"] = le["set_table"]
+    print(f"entry() on the card: outputs equal to its CPU run with 256 random splitters and "
+          f"4,096 of the rows' own codes ({hits} member positions); launches {le}; the step "
+          f"at {b_rows} x {n} symbols with the 4,096-splitter set {step_ms:.4f} ms (plain "
+          f"{plain_ms:.4f} ms, bound {sb[0]:.4f} ms, {sb[1]}); fn with its host packing, "
+          f"upload and set_table {fn_ms:.4f} ms ({card})")
+    del packed, index, got, got_own
+    stamp("12c")
+
+    ck.reset_launches()
+    t0 = time.perf_counter()
+    ge.dryrun_multichip(1, DEVICE)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    ld = launched(ck, ("kmer_dir_rc", "set_table"), "dryrun_multichip(1)")
+    r["dryrun_launches"] = ld["kmer_dir_rc"]
+    results["set_table"]["dryrun_launches"] = ld["set_table"]
+    print(f"dryrun_multichip(1) on the card: the mesh step, the exchange over NCCL (a world of "
+          f"one) and the mesh create passed in {wall:.4f} s; launches {ld} ({card})")
+    stamp("12d")
 
 
 def main() -> int:
@@ -2389,8 +2613,8 @@ def main() -> int:
         print("CUDA is not available: chip_smoke.py needs a CUDA card", file=sys.stderr)
         return 2
     sys.path.insert(0, REPO)
-    from agc_tpu_torch import AGCFile
-    from agc_tpu_torch.core import ArchiveReader
+    from agc_tpu_torch import AGCFile, native
+    from agc_tpu_torch.core import ArchiveReader, Decompressor
     from agc_tpu_torch.core import compressor as cmod
     from agc_tpu_torch.core import entropy as E
     from agc_tpu_torch.core.compressor import (Compressor, CompressorParams, append_archive,
@@ -2417,10 +2641,25 @@ def main() -> int:
     dev = torch.device(DEVICE)
 
     # -- 2. build ----------------------------------------------------------
+    # the C API's g++ build runs beside the kernels' nvcc builds
+    def build_capi():
+        t = time.perf_counter()
+        return native.get_capi_path(), time.perf_counter() - t
+
     t0 = time.perf_counter()
-    lib_path = _build.build()
+    with ThreadPoolExecutor(1) as pool:
+        capi = pool.submit(build_capi)
+        lib_path = _build.build()
+        capi_path, capi_s = capi.result()
     _build.lib()
     print(f"build: {time.perf_counter() - t0:.2f} s -> {os.path.relpath(lib_path, REPO)}")
+    check(capi_path is not None, f"the C API does not build: {native.capi_build_error()}")
+    zstd = [line.strip() for line in subprocess.run(
+        ["ldd", capi_path], capture_output=True, text=True, timeout=60).stdout.splitlines()
+        if "zstd" in line]
+    print(f"C API: {os.path.relpath(capi_path, REPO)} in {capi_s:.2f} s, beside nvcc; zstd: "
+          f"agc_capi.cpp declares the three functions it calls (no zstd.h), linked "
+          f"{' '.join(native._CAPI_LINK)}: {zstd}")
     for line in (_build.BUILD_DIR / "build.log").read_text().splitlines():
         if "Used" in line or "spill" in line:
             print("  ptxas:", line.split(":", 1)[-1].strip())
@@ -3178,6 +3417,12 @@ def main() -> int:
                        AGCFile, results, programs, card, tmp, ref, files, cfiles, wfiles,
                        names, wseqs, w_size, wwall, stamp)
         stamp("11")
+
+        # -- 12. the C API on the card's archive; the graft entry points
+        capi_phase(np, torch, Decompressor, native.get_capi(), os.path.dirname(capi_path), card,
+                   tmp, wout, wseqs, names, stamp)
+        entry_phase(np, torch, ck, u64, results, card, stamp)
+        stamp("12")
     finally:
         for proc in CHILDREN:
             if proc.poll() is None:
@@ -3194,7 +3439,8 @@ def main() -> int:
             if key.startswith(("whole_genome", "chr_scale", "large_table", "member_",
                                "adaptive_", "anchor_", "old_count_", "flush_", "kernel_ms",
                                "synthetic_", "one_launch_", "tier_", "spill_",
-                               "table_bytes", "sharded_", "mesh_", "torchdist_"))}}
+                               "table_bytes", "sharded_", "mesh_", "torchdist_", "entry_",
+                               "dryrun_"))}}
         for name, r in results.items()
     ]
     for name, r in results.items():

@@ -199,7 +199,8 @@ def test_port_stands_alone(tmp_path):
     imports, creates on the CPU (default mode, -a -f, anchor mode with the
     match layer's tables and the forced estimate prepass, and tpu-rans with
     the forced device coder), and extracts byte-equal through its own
-    AGCFile and its own CLI (getcol)."""
+    AGCFile, its own CLI (getcol) and its own C library (built here); the
+    graft entry points (entry, dryrun_multichip) run on the CPU."""
     files = make_collection(tmp_path, random.Random(13), n_samples=1,
                             contig_lens=(30000, 9000))
     out = str(tmp_path / "x.agc")
@@ -234,6 +235,20 @@ def test_port_stands_alone(tmp_path):
         f"with agc_tpu_torch.AGCFile({out!r}) as agc:\n"
         "    print(agc.GetCtgSeq('s0', 'c2'))\n"
         f"assert main(['getcol', '-l', '70', '-o', {str(got_dir)!r}, {out!r}]) == 0\n"
+        "import ctypes\n"
+        "from agc_tpu_torch.native import capi_build_error, get_capi\n"
+        "lib = get_capi()\n"
+        "assert lib is not None, capi_build_error()\n"
+        f"h = lib.agc_open({out!r}.encode(), 1)\n"
+        "n = lib.agc_get_ctg_len(h, b's0', b'c2')\n"
+        "buf = ctypes.create_string_buffer(n + 1)\n"
+        "assert lib.agc_get_ctg_seq(h, b's0', b'c2', -1, -1, buf) == n\n"
+        "assert lib.agc_close(h) == 0\n"
+        f"assert buf.value.decode() == agc_tpu_torch.AGCFile({out!r}).GetCtgSeq('s0', 'c2')\n"
+        "from agc_tpu_torch.graft_entry import dryrun_multichip, entry\n"
+        "fn, args = entry('cpu')\n"
+        "assert fn(*args)[0].shape == (4, 1 << 14)\n"
+        "dryrun_multichip(1, 'cpu')\n"
         "assert not [m for m in sys.modules if m.split('.')[0] in ('agc_tpu', 'jax')]\n"
     )
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
