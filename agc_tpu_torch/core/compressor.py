@@ -976,8 +976,9 @@ class Compressor:
         human assemblies. Pass 1 canonizes each contig in one kmer_canon
         launch and keeps a 1/2^frac_bits value sample of its k-mers per
         CHUNK slice (``sample_kmers``); the samples make the sorted pool.
-        Pass 2 canonizes each contig again and walks it whole in one
-        greedy_walk launch over that pool. Only one contig's codes and the
+        Pass 2 builds the pool's walk_index once, then canonizes each
+        contig again and walks it whole in one greedy_walk launch over
+        that index. Only one contig's codes and the
         packed reference (0.5 byte a base) stay on the device between the
         passes. Returns per contig (pos, kmers, tail_pos, tail_kmer)."""
         frac_bits = 0
@@ -1004,13 +1005,14 @@ class Compressor:
             del parts
         emissions = []
         with self.timers.stage("disc_greedy"):
+            index = walk_index(pool)  # one index of the pool for every contig's walk
             for row, codes in zip(rows, contigs):
                 if row is None:
                     emissions.append((np.empty(0, np.int64), np.empty(0, np.uint64), None, 0))
                     continue
                 canon = kmer_canon(row[None, :], self.k)[0]
                 emissions.extend(find_splitter_emissions_packed(
-                    canon, [(0, len(codes))], self.k, pool, self.p.segment_size
+                    canon, [(0, len(codes))], self.k, pool, self.p.segment_size, index=index
                 ))
                 del canon
         return emissions

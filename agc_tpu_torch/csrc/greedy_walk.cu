@@ -27,20 +27,23 @@
 // round's latency, the round's width in time, and the number of rounds:
 //
 // - A probe is a constant expected number of dependent loads. The walk
-//   index is built once a walk, in three streaming passes:
-//   singles_count_kernel and singles_write_kernel compact the pool's
-//   singletons (sorted, distinct, coalesced), and dir_kernel writes a
-//   directory of 2^bits + 1 u32 offsets into them over the top `bits`
-//   bits of the unsigned code, bits = ceil(log2 S), so a bucket holds
-//   under one singleton on average. A probe loads its bucket's two bounds
-//   and compares the value with the bucket's entries, kScan at once
-//   (`lookup`, kmer_common.cuh, which kmer_dir_rc shares): two
-//   dependent device-memory loads after the code's. Repeated k-mers, deep
-//   runs of equal values in the pool, are not in the index; the canonical
-//   codes' skew toward A-rich prefixes makes the densest buckets about
-//   twice the mean, and a larger bucket is halved first. A hash set of
-//   the singletons would save the bounds' load, but its build (random
-//   inserts) is slower than these passes.
+//   index is built once a pool, in two launches: singles_kernel reads the
+//   pool once and compacts its singletons (sorted, distinct, coalesced),
+//   each tile's offset from a decoupled look-back; then, S known (one host
+//   read), dir_kernel reads the singletons and writes a directory of
+//   2^bits + 1 u32 offsets into them over the top `bits` bits of the
+//   unsigned code, bits = ceil(log2 S), so a bucket holds under one
+//   singleton on average. What bounds the build: the pool read once, the
+//   singletons written once and read once, the directory written once;
+//   the singletons' buffer has the pool's length, since S is known only
+//   after the pass. A probe loads its bucket's two bounds and compares
+//   the value with the bucket's entries, kScan at once (`lookup`,
+//   kmer_common.cuh): two dependent device-memory loads after the
+//   code's. Repeated k-mers, deep runs of equal values in the pool, are
+//   not in the index; the canonical codes' skew toward A-rich prefixes
+//   makes the densest buckets about twice the mean, and a larger bucket is
+//   halved first. A hash set of the singletons would save the bounds'
+//   load, but its build (random inserts) is slower than these passes.
 // - A round probes kSpec = 16 windows of kWin = 512 positions at t,
 //   t+seg, ..., t+15*seg, speculatively, as agc_tpu's _GREEDY_SPEC loop
 //   does (kmers.py:650-687), and commits them in order: window i's
@@ -87,69 +90,117 @@ __device__ __forceinline__ int first_hit(const unsigned* m, int d) {
   return -1;
 }
 
-// pool[i] is a singleton: not SENTINEL and unlike both neighbours.
-__device__ __forceinline__ bool single_at(const int64_t* __restrict__ pool,
-                                          int64_t P, int64_t i) {
-  if (i >= P) return false;
-  const int64_t v = pool[i];
-  const int64_t prev = i > 0 ? pool[i - 1] : INT64_MAX;
-  const int64_t next = i + 1 < P ? pool[i + 1] : INT64_MAX;
-  return v != INT64_MAX && v != prev && v != next;
-}
-
-__global__ void __launch_bounds__(kIndexThreads)
-    singles_count_kernel(const int64_t* __restrict__ pool, int64_t P,
-                         int64_t* __restrict__ counts) {
-  __shared__ int s_sum[kIndexThreads / 32];
-  const int64_t base = static_cast<int64_t>(blockIdx.x) * kIndexTile + threadIdx.x;
-  int c = 0;
-#pragma unroll
-  for (int r = 0; r < kIndexPer; ++r) c += single_at(pool, P, base + r * kIndexThreads);
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) c += __shfl_down_sync(0xffffffffu, c, o);
-  if ((threadIdx.x & 31) == 0) s_sum[threadIdx.x >> 5] = c;
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    int64_t total = 0;
-    for (int w = 0; w < kIndexThreads / 32; ++w) total += s_sum[w];
-    counts[blockIdx.x] = total;
+// dir[lo .. hi] = val for each lane's range (empty when lo > hi); every
+// lane of the warp calls it: a lane writes a short range itself, the whole
+// warp a long one, neighbouring lanes on neighbouring words.
+__device__ __forceinline__ void dir_range(uint32_t* __restrict__ dir, int64_t lo, int64_t hi,
+                                          uint32_t val, int lane) {
+  const bool wide = hi - lo >= 32;
+  if (!wide) {
+    for (int64_t b = lo; b <= hi; ++b) dir[b] = val;
+  }
+  unsigned todo = __ballot_sync(0xffffffffu, wide);
+  while (todo) {
+    const int src = __ffs(todo) - 1;
+    todo &= todo - 1;
+    const int64_t l = __shfl_sync(0xffffffffu, lo, src);
+    const int64_t h = __shfl_sync(0xffffffffu, hi, src);
+    const uint32_t v = __shfl_sync(0xffffffffu, val, src);
+    for (int64_t b = l + lane; b <= h; b += 32) dir[b] = v;
   }
 }
 
-// Writes the tile's singletons in order from ends[tile - 1] (0 for the
-// first tile), ends being the inclusive sums of singles_count_kernel's
-// counts; neighbouring lanes write neighbouring singletons.
+// walk_index's one read of the pool: a block takes a tile of kIndexTile
+// entries, stages it in shared memory with the entry on each side (outside
+// the pool: SENTINEL, which is never a singleton), flags its singletons
+// (not SENTINEL and unlike both neighbours), publishes their count,
+// learns the count before it by decoupled look-back and writes them in
+// order from there, neighbouring lanes on neighbouring singletons. The
+// last tile writes S, the singletons' count, to total.
 __global__ void __launch_bounds__(kIndexThreads)
-    singles_write_kernel(const int64_t* __restrict__ pool, int64_t P,
-                         const int64_t* __restrict__ ends,
-                         int64_t* __restrict__ singles) {
-  __shared__ int s_cnt[kIndexThreads / 32];
+    singles_kernel(const int64_t* __restrict__ pool, int64_t P, uint64_t* __restrict__ status,
+                   int64_t* __restrict__ singles, int64_t* __restrict__ total) {
+  constexpr int kWarpsIdx = kIndexThreads / 32;
+  __shared__ int64_t s_pool[kIndexTile + 2];
+  __shared__ int s_cnt[kIndexPer * kWarpsIdx];  // a round's warp's singletons, then their offset
+  __shared__ int64_t s_look[kWarpsIdx];
+  __shared__ int s_tile;
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
-  const int64_t base = static_cast<int64_t>(blockIdx.x) * kIndexTile + threadIdx.x;
-  int64_t at = blockIdx.x > 0 ? ends[blockIdx.x - 1] : 0;
-  for (int r = 0; r < kIndexPer; ++r) {
-    const int64_t i = base + r * kIndexThreads;
-    const bool f = single_at(pool, P, i);
-    const unsigned m = __ballot_sync(0xffffffffu, f);
-    if (lane == 0) s_cnt[warp] = __popc(m);
-    __syncthreads();
-    int before = 0, total = 0;
+  const int64_t t = blockIdx.x;
+  const int64_t base = t * kIndexTile;
+  {
+    int64_t v[kIndexPer];  // every load in flight before the first store
 #pragma unroll
-    for (int w = 0; w < kIndexThreads / 32; ++w) {
-      before += w < warp ? s_cnt[w] : 0;
-      total += s_cnt[w];
+    for (int r = 0; r < kIndexPer; ++r) {
+      const int64_t g = base + r * kIndexThreads + threadIdx.x;
+      v[r] = g < P ? pool[g] : INT64_MAX;
     }
-    if (f) singles[at + before + __popc(m & ((1u << lane) - 1u))] = pool[i];
-    at += total;
-    __syncthreads();  // s_cnt is rewritten by the next step
+#pragma unroll
+    for (int r = 0; r < kIndexPer; ++r) s_pool[r * kIndexThreads + threadIdx.x + 1] = v[r];
+  }
+  if (threadIdx.x == 0) s_pool[0] = base > 0 ? pool[base - 1] : INT64_MAX;
+  if (threadIdx.x == 1) {
+    s_pool[kIndexTile + 1] = base + kIndexTile < P ? pool[base + kIndexTile] : INT64_MAX;
+  }
+  __syncthreads();
+  unsigned flags = 0;  // bit r: entry base + r * kIndexThreads + threadIdx.x
+#pragma unroll
+  for (int r = 0; r < kIndexPer; ++r) {
+    const int j = r * kIndexThreads + threadIdx.x + 1;
+    const int64_t v = s_pool[j];
+    const bool f = v != INT64_MAX && v != s_pool[j - 1] && v != s_pool[j + 1];
+    flags |= static_cast<unsigned>(f) << r;
+    const unsigned m = __ballot_sync(0xffffffffu, f);
+    if (lane == 0) s_cnt[r * kWarpsIdx + warp] = __popc(m);
+  }
+  __syncthreads();
+  if (warp == 0) {
+    // exclusive sums of the counts in (round, warp) order, kEach a lane
+    constexpr int kEach = kIndexPer * kWarpsIdx / 32;
+    int c[kEach], own = 0;
+#pragma unroll
+    for (int e = 0; e < kEach; ++e) {
+      c[e] = s_cnt[lane * kEach + e];
+      own += c[e];
+    }
+    int incl = own;
+#pragma unroll
+    for (int o = 1; o < 32; o <<= 1) {
+      const int y = __shfl_up_sync(0xffffffffu, incl, o);
+      if (lane >= o) incl += y;
+    }
+    int run = incl - own;
+#pragma unroll
+    for (int e = 0; e < kEach; ++e) {
+      s_cnt[lane * kEach + e] = run;
+      run += c[e];
+    }
+    const int tile = __shfl_sync(0xffffffffu, incl, 31);
+    if (lane == 0) {
+      if (t > 0) store_relaxed(status + t, kFlagOwn | static_cast<uint64_t>(tile));
+      s_tile = tile;
+    }
+  }
+  __syncthreads();
+  const int64_t at = t > 0 ? look_back<kIndexThreads>(status, t, s_look) : 0;
+  if (threadIdx.x == 0) {
+    store_relaxed(status + t, kFlagPrefix | static_cast<uint64_t>(at + s_tile));
+    if (t == gridDim.x - 1) *total = at + s_tile;
+  }
+#pragma unroll
+  for (int r = 0; r < kIndexPer; ++r) {
+    const int j = r * kIndexThreads + threadIdx.x;
+    const bool f = (flags >> r) & 1u;
+    const unsigned m = __ballot_sync(0xffffffffu, f);
+    if (f) singles[at + s_cnt[r * kWarpsIdx + warp] + __popc(m & ((1u << lane) - 1u))] =
+        s_pool[j + 1];
   }
 }
 
 // dir[b] = the first singles index whose bucket is >= b, for b in
 // [0, 2^bits]: thread i writes the buckets in (bucket(v[i-1]),
-// bucket(v[i])]; a lane writes a short range itself, the whole warp a
-// long one.
+// bucket(v[i])] (the last, i = S, those to 2^bits).
 __global__ void dir_kernel(const int64_t* __restrict__ v, int64_t S, int bits,
                            uint32_t* __restrict__ dir) {
   const int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
@@ -158,20 +209,7 @@ __global__ void dir_kernel(const int64_t* __restrict__ v, int64_t S, int bits,
     lo = i > 0 ? static_cast<int64_t>(bucket_of(v[i - 1], bits)) + 1 : 0;
     hi = i < S ? static_cast<int64_t>(bucket_of(v[i], bits)) : (1ll << bits);
   }
-  const bool wide = hi - lo >= 32;
-  if (!wide) {
-    for (int64_t b = lo; b <= hi; ++b) dir[b] = static_cast<uint32_t>(i);
-  }
-  unsigned todo = __ballot_sync(0xffffffffu, wide);
-  const int lane = threadIdx.x & 31;
-  while (todo) {
-    const int src = __ffs(todo) - 1;
-    todo &= todo - 1;
-    const int64_t l = __shfl_sync(0xffffffffu, lo, src);
-    const int64_t h = __shfl_sync(0xffffffffu, hi, src);
-    const uint32_t val = static_cast<uint32_t>(__shfl_sync(0xffffffffu, i, src));
-    for (int64_t b = l + lane; b <= h; b += 32) dir[b] = val;
-  }
+  dir_range(dir, lo, hi, static_cast<uint32_t>(i), threadIdx.x & 31);
 }
 
 // One cluster of kCluster blocks a contig. Block rank 0 holds the round's
@@ -288,37 +326,34 @@ __global__ void __cluster_dims__(kCluster, 1, 1) __launch_bounds__(kWalkThreads)
 }  // namespace
 }  // namespace agc
 
-// Pool entries a block of agc_walk_singles_count takes: counts has
-// ceil(P / agc_walk_index_tile()) entries.
+// Pool entries a block of agc_walk_singles takes: status has
+// ceil(P / agc_walk_index_tile()) words.
 extern "C" int agc_walk_index_tile() { return agc::kIndexTile; }
 
-// pool: sorted int64[P]; counts: int64[ceil(P / tile)], the singletons of
-// each tile.
-extern "C" int agc_walk_singles_count(const int64_t* pool, int64_t P,
-                                      int64_t* counts, void* stream) {
+// pool: sorted int64[P]; status: u64[ceil(P / tile)], zero; singles:
+// int64[P], its first S entries written, S = *total (int64).
+extern "C" int agc_walk_singles(const int64_t* pool, int64_t P, uint64_t* status,
+                                int64_t* singles, int64_t* total, void* stream) {
   using namespace agc;
   const int64_t tiles = (P + kIndexTile - 1) / kIndexTile;
+  if (tiles > INT32_MAX) return static_cast<int>(cudaErrorInvalidValue);
   if (tiles > 0) {
-    singles_count_kernel<<<static_cast<unsigned>(tiles), kIndexThreads, 0,
-                           static_cast<cudaStream_t>(stream)>>>(pool, P, counts);
+    singles_kernel<<<static_cast<unsigned>(tiles), kIndexThreads, 0,
+                     static_cast<cudaStream_t>(stream)>>>(pool, P, status, singles, total);
   }
   return static_cast<int>(cudaGetLastError());
 }
 
-// ends: inclusive sums of the counts, S = ends[tiles - 1] singletons;
-// singles: int64[S]; dir: u32[2^bits + 1], 1 <= bits <= 30, S < 2^32.
-extern "C" int agc_walk_index(const int64_t* pool, int64_t P, const int64_t* ends,
-                              int64_t* singles, int64_t S, int bits,
-                              uint32_t* dir, void* stream) {
+// singles: the S sorted singletons; dir: u32[2^bits + 1], 1 <= bits <= 30,
+// S < 2^32.
+extern "C" int agc_walk_dir(const int64_t* singles, int64_t S, int bits, uint32_t* dir,
+                            void* stream) {
   using namespace agc;
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int64_t tiles = (P + kIndexTile - 1) / kIndexTile;
-  if (tiles > 0) {
-    singles_write_kernel<<<static_cast<unsigned>(tiles), kIndexThreads, 0, st>>>(
-        pool, P, ends, singles);
-  }
+  if (bits < 1 || bits > 30 || S < 0 || S >= (int64_t{1} << 32) - 1)
+    return static_cast<int>(cudaErrorInvalidValue);
   const int64_t blocks = (S + 1 + kIndexThreads - 1) / kIndexThreads;
-  dir_kernel<<<static_cast<unsigned>(blocks), kIndexThreads, 0, st>>>(singles, S, bits, dir);
+  dir_kernel<<<static_cast<unsigned>(blocks), kIndexThreads, 0,
+               static_cast<cudaStream_t>(stream)>>>(singles, S, bits, dir);
   return static_cast<int>(cudaGetLastError());
 }
 

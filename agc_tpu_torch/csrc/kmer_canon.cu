@@ -38,9 +38,10 @@
 // kmer_core_via_pallas, pallas_kmers.py:197-213). It is bound by its 17
 // bytes out a position (18 with membership) against 0.5 in.
 //
-// The set is looked up in a sector-bucket table that set_table_build
-// (below) makes once a set: 2^bits buckets of four int64 slots, 32 bytes,
-// one DRAM sector, a bucket chosen by a multiplicative hash of the code.
+// The set is looked up in a sector-bucket table that set_table
+// (agc_set_slice_build, below) makes once a set: 2^bits buckets of four
+// int64 slots, 32 bytes, one DRAM sector, a bucket chosen by a
+// multiplicative hash of the code.
 // Not by its top bits: a canonical code is the smaller orientation, so the
 // low prefixes are twice as dense as the mean; and not by a rank
 // interpolated in the set's order either: the mutated copies of a repeat
@@ -62,6 +63,20 @@
 // random sector of DRAM, and an H100 serves those at ~27-33 G a second:
 // that, not the bytes the bound counts, holds the set form back. Each
 // thread keeps kInFlight lookups in flight.
+//
+// The build writes each table in slices of 2^11 buckets, 64 KB, one
+// block's shared memory: a block takes a slice's values, builds its image
+// there and writes it whole, SENTINELs included, with coalesced 16-byte
+// stores; its spill goes out at an offset from a decoupled look-back. So
+// the table is written once, with no fill pass and no global atomic. A set
+// of up to four slices (16,384 values) is read whole by each slice's
+// block. A larger one is first moved to its slices by one or two partition
+// levels of at most 2^10 bins (a count, torch.cumsum of the counts, a
+// scatter): two at -f discovery's 55.6 M values (2^14 slices), the first
+// writing into the table's own memory, which the build then overwrites,
+// so beside the set the build holds the table, one scratch copy of the set
+// and the counts. The bound is the set read once and the table written
+// once; each partition level adds two reads and a write of the set.
 #include "kmer_common.cuh"
 
 namespace agc {
@@ -70,9 +85,17 @@ namespace {
 constexpr int kCanonThreads = 128;
 constexpr int kInFlight = 8;  // set lookups a thread keeps in flight
 constexpr int kSetSlots = 4;   // int64 slots a bucket: one 32-byte sector
-constexpr int kSetAhead = 4;   // values an inserting thread reads ahead
-constexpr int kSetSliceBits = 19;  // buckets of a partition: 2^19 x 32 B = 16 MB of L2
-constexpr int kPartChunk = 4096;   // values a block of the partition passes
+constexpr int kSetAhead = 16;  // values a thread of the set build reads at once
+constexpr int kSetSliceBits = 11;  // buckets of a slice: 2^11 x 32 B = 64 KB of shared memory
+constexpr int kSliceThreads = 256;
+static_assert(kSliceThreads == kThreads, "block_exclusive_scan is written for kThreads");
+constexpr int kPartChunk = 4096;   // values a block of a partition level stages at once
+constexpr int kPartMaxBits = 10;   // bins of a partition level
+constexpr int kSetDirectSlices = 4;  // slices of a table built without a partition
+// values a slice's block sorts in its shared memory: what the chain
+// path's image and tie counters take (36 bytes a bucket), less a word a
+// bucket for its place and one for its spill's, 8 bytes a value
+constexpr int kSliceCap = (28 << kSetSliceBits) / 8;
 constexpr int kCanonTile = kCanonThreads * kPerThread;  // positions a block
 constexpr int kInBytes = 16 + kCanonTile / 2;  // warm-up bytes + the tile's
 constexpr int kStage = kCanonTile + kCanonTile / 32;
@@ -298,175 +321,378 @@ __global__ void __launch_bounds__(kCanonThreads)
   }
 }
 
-// set_table_build's fill: every slot SENTINEL, the spill count 0.
-__global__ void set_fill_kernel(longlong2* __restrict__ halves, int64_t n_halves,
-                                unsigned long long* __restrict__ count) {
-  const longlong2 empty = make_longlong2(INT64_MAX, INT64_MAX);
-  const int64_t stride = static_cast<int64_t>(gridDim.x) * blockDim.x;
-  for (int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x; i < n_halves;
-       i += stride) {
-    halves[i] = empty;
-  }
-  if (blockIdx.x == 0 && threadIdx.x == 0) *count = 0;
+// ---------------------------------------------------------------------------
+// set_table's build: partitions by slice, then a block a slice in shared
+// memory
+// ---------------------------------------------------------------------------
+
+// The partition bin of a value: bits [shift, shift + pbits) of its bucket.
+__device__ __forceinline__ uint32_t set_bin(int64_t v, uint64_t hash, int bits, int shift,
+                                            int pbits) {
+  return static_cast<uint32_t>(set_bucket(v, hash, bits) >> shift) & ((1u << pbits) - 1u);
 }
 
-// The partition of a value: the top pbits bits of its bucket (0 when
-// pbits is 0), so that a partition's buckets are one slice of the table.
-__device__ __forceinline__ uint32_t set_part(int64_t v, uint64_t hash, int bits, int pbits) {
-  return pbits ? static_cast<uint32_t>(set_bucket(v, hash, bits) >> (bits - pbits)) : 0u;
-}
+// The source of a partition level: `segs` segments (the whole of [0, n)
+// when seg is null, else segment a is [seg[a * stride], seg[(a + 1) *
+// stride]), the bins of the level before), each cut into q pieces of
+// ceil(m / q) values. Block a * q + j takes piece j of segment a.
+struct Pieces {
+  const int32_t* __restrict__ seg;
+  int64_t stride;
+  int64_t n;
+  int64_t q;
 
-// agc_set_partition_count: each block counts its kPartChunk values by
-// partition in shared memory, counts[p * blocks + block].
-__global__ void set_count_kernel(const int64_t* __restrict__ values, int64_t n, uint64_t hash,
-                                 int bits, int pbits, int32_t* __restrict__ counts) {
-  extern __shared__ uint32_t hist[];
-  const int parts = 1 << pbits;
-  for (int p = threadIdx.x; p < parts; p += blockDim.x) hist[p] = 0;
+  __device__ __forceinline__ void range(int64_t block, int64_t* lo, int64_t* hi) const {
+    const int64_t a = block / q, j = block % q;
+    const int64_t s = seg ? seg[a * stride] : 0;
+    const int64_t e = seg ? seg[(a + 1) * stride] : n;
+    const int64_t per = (e - s + q - 1) / q;
+    *lo = s + j * per < e ? s + j * per : e;
+    *hi = *lo + per < e ? *lo + per : e;
+  }
+};
+
+// The count of a level: each block counts its piece by bin in shared
+// memory, counts[((a << pbits) + bin) * q + j], so that the exclusive sum of
+// counts in that order gives each bin's piece its place, the bins of a
+// segment in turn and a bin's pieces in order.
+__global__ void __launch_bounds__(kThreads)
+    set_count_kernel(const int64_t* __restrict__ src, Pieces pc, uint64_t hash, int bits,
+                     int shift, int pbits, int32_t* __restrict__ counts) {
+  __shared__ uint32_t hist[1 << kPartMaxBits];
+  const int bins = 1 << pbits;
+  for (int c = threadIdx.x; c < bins; c += kThreads) hist[c] = 0;
   __syncthreads();
-  const int64_t base = static_cast<int64_t>(blockIdx.x) * kPartChunk;
-  const int64_t end = n - base < kPartChunk ? n : base + kPartChunk;
-  for (int64_t i = base + threadIdx.x; i < end; i += blockDim.x) {
-    atomicAdd(hist + set_part(values[i], hash, bits, pbits), 1u);
+  int64_t lo, hi;
+  pc.range(blockIdx.x, &lo, &hi);
+  for (int64_t i0 = lo + threadIdx.x; i0 < hi; i0 += kSetAhead * kThreads) {
+    int64_t v[kSetAhead];  // loads in flight together
+#pragma unroll
+    for (int q = 0; q < kSetAhead; ++q) {
+      const int64_t i = i0 + q * kThreads;
+      v[q] = i < hi ? src[i] : 0;
+    }
+#pragma unroll
+    for (int q = 0; q < kSetAhead; ++q) {
+      if (i0 + q * kThreads < hi) atomicAdd(hist + set_bin(v[q], hash, bits, shift, pbits), 1u);
+    }
   }
   __syncthreads();
-  for (int p = threadIdx.x; p < parts; p += blockDim.x) {
-    counts[static_cast<int64_t>(p) * gridDim.x + blockIdx.x] = static_cast<int32_t>(hist[p]);
+  const int64_t a = blockIdx.x / pc.q, j = blockIdx.x % pc.q;
+  for (int c = threadIdx.x; c < bins; c += kThreads) {
+    counts[((a << pbits) + c) * pc.q + j] = static_cast<int32_t>(hist[c]);
   }
 }
 
 // Exclusive prefix sum of a[0, n) in shared memory, in place; every thread
-// of the block calls it. scratch: kThreads words.
-__device__ void block_exclusive_scan(uint32_t* a, int n, uint32_t* scratch) {
+// of the block (kThreads of them) calls it, and each gets the total.
+// scratch: kThreads / 32 words.
+__device__ uint32_t block_exclusive_scan(uint32_t* a, int n, uint32_t* scratch) {
   const int per = (n + kThreads - 1) / kThreads;
   const int lo = threadIdx.x * per;
   const int hi = lo + per < n ? lo + per : n;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   uint32_t sum = 0;
   for (int i = lo; i < hi; ++i) sum += a[i];
-  scratch[threadIdx.x] = sum;
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    uint32_t run = 0;
-    for (int t = 0; t < kThreads; ++t) {
-      const uint32_t x = scratch[t];
-      scratch[t] = run;
-      run += x;
-    }
+  uint32_t incl = sum;
+#pragma unroll
+  for (int o = 1; o < 32; o <<= 1) {
+    const uint32_t y = __shfl_up_sync(0xffffffffu, incl, o);
+    if (lane >= o) incl += y;
   }
+  if (lane == 31) scratch[warp] = incl;
   __syncthreads();
-  uint32_t run = scratch[threadIdx.x];
+  uint32_t run = incl - sum, total = 0;
+  for (int w = 0; w < kThreads / 32; ++w) {
+    run += w < warp ? scratch[w] : 0;
+    total += scratch[w];
+  }
   for (int i = lo; i < hi; ++i) {
     const uint32_t x = a[i];
     a[i] = run;
     run += x;
   }
   __syncthreads();
+  return total;
 }
 
-// set_table_build's partition pass: each block moves its kPartChunk values
-// to their places in the partitions (offsets: the exclusive prefix sum of
-// counts, in the same layout). It sorts them by partition in shared memory
-// first (the order inside a partition is the shared atomics', which the
-// inserts do not depend on), so that its writes are runs of ~chunk /
-// partitions values, neighbouring threads on neighbouring words. Shared
-// memory: the chunk, then per partition its local start, cursor and
-// global offset.
-__global__ void __launch_bounds__(kThreads)
-    set_scatter_kernel(const int64_t* __restrict__ values, int64_t n, uint64_t hash, int bits,
-                       int pbits, const int64_t* __restrict__ offsets,
+// The scatter of a level: each block moves its piece to its bins' places
+// (offsets: the exclusive sum of set_count_kernel's counts, then the
+// total), kPartChunk values at a time. It sorts each chunk by bin in shared
+// memory first (the order inside a bin is the shared atomics', which the
+// slice build does not depend on), so that its writes are runs of about
+// chunk / bins values, neighbouring threads on neighbouring words.
+__global__ void __launch_bounds__(kThreads, 4)
+    set_scatter_kernel(const int64_t* __restrict__ src, Pieces pc, uint64_t hash, int bits,
+                       int shift, int pbits, const int32_t* __restrict__ offsets,
                        int64_t* __restrict__ out) {
+  __shared__ int64_t staged[kPartChunk];
+  __shared__ uint32_t start[1 << kPartMaxBits], cursor[1 << kPartMaxBits];
+  __shared__ int32_t base[1 << kPartMaxBits];
+  __shared__ uint32_t scratch[kThreads / 32];
+  constexpr int kPer = kPartChunk / kThreads;
+  const int bins = 1 << pbits;
+  const int64_t a = blockIdx.x / pc.q, j = blockIdx.x % pc.q;
+  for (int c = threadIdx.x; c < bins; c += kThreads) base[c] = offsets[((a << pbits) + c) * pc.q + j];
+  int64_t lo, hi;
+  pc.range(blockIdx.x, &lo, &hi);
+  for (int64_t at = lo; at < hi; at += kPartChunk) {
+    const int m = hi - at < kPartChunk ? static_cast<int>(hi - at) : kPartChunk;
+    for (int c = threadIdx.x; c < bins; c += kThreads) start[c] = cursor[c] = 0;
+    __syncthreads();
+    int64_t v[kPer];
+#pragma unroll
+    for (int r = 0; r < kPer; ++r) {
+      const int i = threadIdx.x + r * kThreads;
+      v[r] = i < m ? src[at + i] : 0;
+    }
+#pragma unroll
+    for (int r = 0; r < kPer; ++r) {
+      if (threadIdx.x + r * kThreads < m) {
+        atomicAdd(start + set_bin(v[r], hash, bits, shift, pbits), 1u);
+      }
+    }
+    __syncthreads();
+    block_exclusive_scan(start, bins, scratch);
+#pragma unroll
+    for (int r = 0; r < kPer; ++r) {
+      if (threadIdx.x + r * kThreads < m) {
+        const uint32_t c = set_bin(v[r], hash, bits, shift, pbits);
+        staged[start[c] + atomicAdd(cursor + c, 1u)] = v[r];
+      }
+    }
+    __syncthreads();
+    for (int i = threadIdx.x; i < m; i += kThreads) {
+      const int64_t x = staged[i];
+      const uint32_t c = set_bin(x, hash, bits, shift, pbits);
+      out[base[c] + (i - static_cast<int>(start[c]))] = x;
+    }
+    __syncthreads();
+    for (int c = threadIdx.x; c < bins; c += kThreads) base[c] += static_cast<int32_t>(cursor[c]);
+  }
+}
+
+// Every thread of slice block t, which has published its spill count
+// `own`: looks back for the spill before it and publishes the sum; the
+// last block writes the whole spill's size to count. Returns the offset.
+__device__ __forceinline__ int64_t spill_offset(uint64_t* status, int64_t t, uint64_t own,
+                                                int64_t* count) {
+  __shared__ int64_t s_look[kSliceThreads / 32];
+  const int64_t ex = t > 0 ? look_back<kSliceThreads>(status, t, s_look) : 0;
+  if (threadIdx.x == 0) {
+    store_relaxed(status + t, kFlagPrefix | (ex + own));
+    if (t == gridDim.x - 1) *count = ex + static_cast<int64_t>(own);
+  }
+  return ex;
+}
+
+// A slice of at most kSliceCap values (every slice of a set of typical
+// skew), sorted by bucket in shared memory with 32-bit atomics only:
+// the slice's values are counted a bucket (their spill too: past four a
+// bucket), the counts summed into each bucket's place, and the values read
+// again (from L2) and moved there; then a thread a bucket keeps its four
+// smallest in order, sends the rest to the spill, and writes the bucket's
+// 32 bytes, neighbouring threads on neighbouring buckets. The spill count
+// goes out before the second read, the look-back follows it. Shared
+// memory: the values, then a word a bucket for its place and one for its
+// spill's.
+__device__ __forceinline__ void slice_sorted(const int64_t* __restrict__ src, int64_t lo,
+                                             int64_t hi, int64_t t, uint64_t hash, int bits,
+                                             longlong2* __restrict__ dst,
+                                             int64_t* __restrict__ spill, int64_t cap,
+                                             uint64_t* __restrict__ status,
+                                             int64_t* __restrict__ count, unsigned char* smem) {
+  constexpr int kB = 1 << kSetSliceBits;
+  constexpr uint32_t kMask = kB - 1;
+  __shared__ uint32_t scratch[kSliceThreads / 32];
+  long long* placed = reinterpret_cast<long long*>(smem);
+  uint32_t* at = reinterpret_cast<uint32_t*>(placed + kSliceCap);
+  uint32_t* sp = at + kB;
+  for (int b = threadIdx.x; b < kB; b += kSliceThreads) at[b] = 0;
+  __syncthreads();
+  for (int64_t i0 = lo + threadIdx.x; i0 < hi; i0 += kSetAhead * kSliceThreads) {
+    int64_t v[kSetAhead];
+#pragma unroll
+    for (int q = 0; q < kSetAhead; ++q) {
+      const int64_t i = i0 + q * kSliceThreads;
+      v[q] = i < hi ? src[i] : INT64_MAX;
+    }
+#pragma unroll
+    for (int q = 0; q < kSetAhead; ++q) {
+      if (v[q] != INT64_MAX) atomicAdd(at + (set_bucket(v[q], hash, bits) & kMask), 1u);
+    }
+  }
+  __syncthreads();
+  for (int b = threadIdx.x; b < kB; b += kSliceThreads) sp[b] = at[b] > 4 ? at[b] - 4 : 0;
+  block_exclusive_scan(at, kB, scratch);
+  const uint32_t own = block_exclusive_scan(sp, kB, scratch);
+  if (threadIdx.x == 0 && t > 0) store_relaxed(status + t, kFlagOwn | own);
+  for (int64_t i0 = lo + threadIdx.x; i0 < hi; i0 += kSetAhead * kSliceThreads) {
+    int64_t v[kSetAhead];
+#pragma unroll
+    for (int q = 0; q < kSetAhead; ++q) {
+      const int64_t i = i0 + q * kSliceThreads;
+      v[q] = i < hi ? src[i] : INT64_MAX;
+    }
+#pragma unroll
+    for (int q = 0; q < kSetAhead; ++q) {
+      if (v[q] != INT64_MAX) {
+        placed[atomicAdd(at + (set_bucket(v[q], hash, bits) & kMask), 1u)] = v[q];
+      }
+    }
+  }
+  __syncthreads();  // at[b] is now the end of bucket b
+  const int64_t base = spill_offset(status, t, own, count);
+  for (int b = threadIdx.x; b < kB; b += kSliceThreads) {
+    long long s0 = INT64_MAX, s1 = INT64_MAX, s2 = INT64_MAX, s3 = INT64_MAX;
+    int64_t to = base + sp[b];
+    for (uint32_t k = b ? at[b - 1] : 0; k < at[b]; ++k) {
+      long long x = placed[k];
+      if (x < s3) {  // x takes its place, the fourth moves out
+        const long long out = s3;
+        s3 = x < s2 ? s2 : x;
+        if (x < s2) s2 = x < s1 ? s1 : x;
+        if (x < s1) s1 = x < s0 ? s0 : x;
+        if (x < s0) s0 = x;
+        x = out;
+      }
+      if (x != INT64_MAX) {  // past the bucket's four
+        if (to < cap) spill[to] = x;
+        ++to;
+      }
+    }
+    dst[2 * b] = make_longlong2(s0, s1);
+    dst[2 * b + 1] = make_longlong2(s2, s3);
+  }
+}
+
+// Any slice (one that outgrows kSliceCap, or one of a set that was not
+// partitioned: src is then read whole and the block keeps its slice's
+// values), with no bound on its values. Three steps, the image in shared
+// memory throughout:
+//
+// 1. Every slot SENTINEL, then each value into its bucket by a chain of
+//    shared atomicMin down the four slots: a slot keeps the smaller of what
+//    it held and what arrives and passes the larger on; the chain stops at
+//    an empty slot. Whatever the order of the threads, each slot ends as the
+//    least value that ever reached it, so a bucket ends as its four smallest
+//    values in order, and a value passed on from the last slot is one of
+//    the rest, which the block counts.
+// 2. The count goes out in status[t], the spill's offset comes from the
+//    look-back, and the image is written whole, SENTINELs included, 16
+//    bytes a thread, neighbouring threads on neighbouring words.
+// 3. The values are read again (from L2) and those past their full
+//    bucket's fourth slot go to spill from that offset (up to cap): above
+//    the last slot, or equal to it beyond the copies the slots hold (a
+//    value held twice), counted by a shared counter a bucket.
+//
+// On an H100 the 64-bit shared atomicMin chains took most of this build's
+// time at -f's 55.6 M-value set, which is why slice_sorted takes every
+// slice it can hold.
+__device__ __forceinline__ void slice_chains(const int64_t* __restrict__ src, int64_t lo,
+                                             int64_t hi, int64_t t, uint64_t hash, int bits,
+                                             int sbits, longlong2* __restrict__ dst,
+                                             int64_t* __restrict__ spill, int64_t cap,
+                                             uint64_t* __restrict__ status,
+                                             int64_t* __restrict__ count, unsigned char* smem) {
+  const int halves = 2 << sbits;
+  longlong2* img2 = reinterpret_cast<longlong2*>(smem);
+  long long* img = reinterpret_cast<long long*>(smem);
+  uint32_t* ties = reinterpret_cast<uint32_t*>(img2 + halves);
+  __shared__ uint32_t s_spilled, s_cursor;
+  const uint64_t mask = (uint64_t{1} << sbits) - 1;
+  const longlong2 empty = make_longlong2(INT64_MAX, INT64_MAX);
+  for (int i = threadIdx.x; i < halves; i += kSliceThreads) img2[i] = empty;
+  for (int i = threadIdx.x; i <= static_cast<int>(mask); i += kSliceThreads) ties[i] = 0;
+  if (threadIdx.x == 0) s_spilled = s_cursor = 0;
+  __syncthreads();
+  for (int64_t i0 = lo + threadIdx.x; i0 < hi; i0 += kSetAhead * kSliceThreads) {
+    long long v[kSetAhead];
+#pragma unroll
+    for (int q = 0; q < kSetAhead; ++q) {
+      const int64_t i = i0 + q * kSliceThreads;
+      v[q] = i < hi ? src[i] : INT64_MAX;
+    }
+#pragma unroll
+    for (int q = 0; q < kSetAhead; ++q) {
+      const uint64_t b = set_bucket(v[q], hash, bits);
+      if (v[q] == INT64_MAX || static_cast<int64_t>(b >> sbits) != t) continue;
+      long long* s = img + kSetSlots * (b & mask);
+      long long x = v[q];
+      // a slot only falls: one already below x would pass it on unchanged
+      const volatile long long* seen = s;
+      int j = 0;
+      while (j < kSetSlots && seen[j] < x) ++j;
+      for (; j < kSetSlots; ++j) {
+        const long long old = atomicMin(s + j, x);
+        if (old == INT64_MAX) break;
+        x = old > x ? old : x;
+      }
+      if (j == kSetSlots) atomicAdd(&s_spilled, 1u);
+    }
+  }
+  __syncthreads();
+  const uint32_t own = s_spilled;
+  if (threadIdx.x == 0 && t > 0) store_relaxed(status + t, kFlagOwn | own);
+  for (int i = threadIdx.x; i < halves; i += kSliceThreads) dst[i] = img2[i];
+  const int64_t base = spill_offset(status, t, own, count);
+  const int lane = threadIdx.x & 31;
+  // every lane of a warp takes the loops the same number of times, so the
+  // ballot that places the warp's spills together sees all 32
+  for (int64_t i0 = lo; i0 < hi; i0 += kSetAhead * kSliceThreads) {
+    long long v[kSetAhead];
+#pragma unroll
+    for (int q = 0; q < kSetAhead; ++q) {
+      const int64_t i = i0 + q * kSliceThreads + threadIdx.x;
+      v[q] = i < hi ? src[i] : INT64_MAX;
+    }
+#pragma unroll
+    for (int q = 0; q < kSetAhead; ++q) {
+      bool out = false;
+      const uint64_t b = set_bucket(v[q], hash, bits);
+      if (v[q] != INT64_MAX && static_cast<int64_t>(b >> sbits) == t) {
+        const long long* s = img + kSetSlots * (b & mask);
+        const long long last = s[kSetSlots - 1];
+        if (last != INT64_MAX && v[q] > last) {
+          out = true;
+        } else if (last != INT64_MAX && v[q] == last) {
+          const uint32_t held = (s[0] == v[q]) + (s[1] == v[q]) + (s[2] == v[q]) + 1;
+          out = atomicAdd(ties + (b & mask), 1u) >= held;
+        }
+      }
+      const unsigned m = __ballot_sync(0xffffffffu, out);
+      uint32_t first = 0;
+      if (lane == 0 && m) first = atomicAdd(&s_cursor, static_cast<uint32_t>(__popc(m)));
+      first = __shfl_sync(0xffffffffu, first, 0);
+      if (out) {
+        const int64_t to = base + first + __popc(m & ((1u << lane) - 1u));
+        if (to < cap) spill[to] = v[q];
+      }
+    }
+  }
+}
+
+// The build of slice t (blockIdx.x), its 2^sbits buckets: from the values
+// in [bounds[t * stride], bounds[(t + 1) * stride]) of src, or from every
+// value of src when bounds is null. The slice's image is written whole,
+// SENTINELs included: no fill pass and no global atomic. Its spill goes
+// to spill from an offset the decoupled look-back gives (up to cap); the
+// last block writes the spill's size, all of it, to count.
+__global__ void __launch_bounds__(kSliceThreads)
+    set_slice_kernel(const int64_t* __restrict__ src, int64_t n,
+                     const int32_t* __restrict__ bounds, int64_t stride, uint64_t hash, int bits,
+                     int sbits, longlong2* __restrict__ buckets, int64_t* __restrict__ spill,
+                     int64_t cap, uint64_t* __restrict__ status, int64_t* __restrict__ count) {
   extern __shared__ __align__(16) unsigned char smem[];
-  const int parts = 1 << pbits;
-  int64_t* staged = reinterpret_cast<int64_t*>(smem);
-  int64_t* base_of = staged + kPartChunk;
-  uint32_t* start = reinterpret_cast<uint32_t*>(base_of + parts);
-  uint32_t* cursor = start + parts;
-  __shared__ uint32_t scratch[kThreads];
-  for (int p = threadIdx.x; p < parts; p += kThreads) {
-    start[p] = 0;
-    cursor[p] = 0;
-    base_of[p] = offsets[static_cast<int64_t>(p) * gridDim.x + blockIdx.x];
+  const int64_t t = blockIdx.x;
+  const int64_t lo = bounds ? bounds[t * stride] : 0;
+  const int64_t hi = bounds ? bounds[(t + 1) * stride] : n;
+  longlong2* dst = buckets + (t << (sbits + 1));
+  if (bounds != nullptr && hi - lo <= kSliceCap) {
+    slice_sorted(src, lo, hi, t, hash, bits, dst, spill, cap, status, count, smem);
+  } else {
+    slice_chains(src, lo, hi, t, hash, bits, sbits, dst, spill, cap, status, count, smem);
   }
-  __syncthreads();
-  const int64_t base = static_cast<int64_t>(blockIdx.x) * kPartChunk;
-  const int m = n - base < kPartChunk ? static_cast<int>(n - base) : kPartChunk;
-  for (int j = threadIdx.x; j < m; j += kThreads) {
-    atomicAdd(start + set_part(values[base + j], hash, bits, pbits), 1u);
-  }
-  __syncthreads();
-  block_exclusive_scan(start, parts, scratch);
-  for (int j = threadIdx.x; j < m; j += kThreads) {
-    const int64_t v = values[base + j];
-    const uint32_t p = set_part(v, hash, bits, pbits);
-    staged[start[p] + atomicAdd(cursor + p, 1u)] = v;
-  }
-  __syncthreads();
-  for (int j = threadIdx.x; j < m; j += kThreads) {
-    const int64_t v = staged[j];
-    const uint32_t p = set_part(v, hash, bits, pbits);
-    out[base_of[p] + (j - start[p])] = v;
-  }
-}
-
-// Second launch: each value goes into its bucket by a chain of atomicMin
-// down the four slots. A slot keeps the smaller of what it held and what
-// arrives and passes the larger on; the chain stops at an empty slot.
-// Whatever the order of the threads, each slot ends as the least value
-// that ever reached it, so a bucket ends as its four smallest values in
-// order, and a value passed on from the last slot is one of the rest: it
-// is appended to spill (up to cap; count says how many there were, so the
-// wrapper can build again with room for all). An atomic on a sector that
-// is not in L2 costs a DRAM read and a write-back of its own, so a table
-// of more than 2^19 buckets gets its values by partition (the scatter
-// pass), and the blocks sweep the table one 16 MB slice after another, in
-// L2, where the atomics, not DRAM, set the pace. A thread reads kSetAhead
-// buckets at once, and its chain starts at the first slot not already
-// below its value: a slot only falls, so such a slot would pass the value
-// on unchanged. SENTINEL, which no code looks up, is skipped.
-__global__ void set_insert_kernel(const int64_t* __restrict__ values, int64_t n, uint64_t hash,
-                                  int bits, long long* __restrict__ slots,
-                                  int64_t* __restrict__ spill, int64_t cap,
-                                  unsigned long long* __restrict__ count) {
-  // a block takes kSetAhead * 256 consecutive values, so the blocks on the
-  // card at once cover ~1 M values: a 20 MB stretch of the partitions
-  const int64_t i0 = static_cast<int64_t>(blockIdx.x) * kSetAhead * blockDim.x + threadIdx.x;
-  long long v[kSetAhead];
-  uint64_t b[kSetAhead];
-  longlong2 lo[kSetAhead], hi[kSetAhead];
-#pragma unroll
-  for (int q = 0; q < kSetAhead; ++q) {
-    const int64_t i = i0 + q * blockDim.x;
-    v[q] = i < n ? values[i] : INT64_MAX;
-    b[q] = set_bucket(v[q], hash, bits);
-    if (v[q] != INT64_MAX) {
-      const longlong2* at = reinterpret_cast<const longlong2*>(slots) + 2 * b[q];
-      lo[q] = __ldcg(at);
-      hi[q] = __ldcg(at + 1);
-    }
-  }
-#pragma unroll
-  for (int q = 0; q < kSetAhead; ++q) {
-    if (v[q] == INT64_MAX) continue;
-    const long long seen[kSetSlots] = {lo[q].x, lo[q].y, hi[q].x, hi[q].y};
-    long long x = v[q];
-    long long* s = slots + kSetSlots * b[q];
-    int j = 0;
-    while (j < kSetSlots && seen[j] < x) ++j;
-    for (; j < kSetSlots; ++j) {
-      const long long old = atomicMin(s + j, x);
-      if (old == INT64_MAX) break;
-      x = old > x ? old : x;
-    }
-    if (j == kSetSlots) {
-      const unsigned long long to = atomicAdd(count, 1ull);
-      if (to < static_cast<unsigned long long>(cap)) spill[to] = x;
-    }
-  }
-}
-
-unsigned grid_for(int64_t items) {
-  const int64_t blocks = (items + 255) / 256;
-  return static_cast<unsigned>(blocks < 132 * 32 ? (blocks > 0 ? blocks : 1) : 132 * 32);
 }
 
 }  // namespace
@@ -487,7 +713,7 @@ extern "C" int agc_kmer_canon(const uint8_t* packed, int64_t B, int64_t half,
 
 // packed: u8[B, half]; udir, urc: int64[B, 2 * half]; valid: u8[B, 2 * half];
 // member: u8[B, 2 * half] or null (no set); buckets1, hash1, bits1 and
-// buckets2, hash2, bits2: the set's two tables (agc_set_table_build), tail
+// buckets2, hash2, bits2: the set's two tables (agc_set_slice_build), tail
 // and n_tail what the second spills, sorted; read only when member is
 // given.
 extern "C" int agc_kmer_dir_rc(const uint8_t* packed, int64_t B, int64_t half, int k,
@@ -509,63 +735,109 @@ extern "C" int agc_kmer_dir_rc(const uint8_t* packed, int64_t B, int64_t half, i
   return static_cast<int>(cudaGetLastError());
 }
 
-// Values a block of the partition passes.
-extern "C" int agc_set_part_chunk() { return agc::kPartChunk; }
 
-// Partition bits of a 2^bits-bucket table: slices of at most 2^19 buckets.
-extern "C" int agc_set_part_bits(int bits) {
-  return bits > agc::kSetSliceBits ? bits - agc::kSetSliceBits : 0;
+// The constants the build's plan (cuda_kmers.set_partition_plan) is made
+// of, into out[5]: the buckets of a slice (a table of 2^bits buckets is
+// built in slices of 2^min(bits, kSetSliceBits) buckets, a block a slice),
+// the values a slice's block sorts in shared memory, the values a block of
+// a partition level stages at once (its pieces' size), the bins of a
+// partition level (2^kPartMaxBits at most), and the slices of a table
+// that is built unpartitioned (every block reading the whole set).
+extern "C" int agc_set_build_constants(int64_t* out) {
+  using namespace agc;
+  const int64_t c[5] = {kSetSliceBits, kSliceCap, kPartChunk, kPartMaxBits, kSetDirectSlices};
+  for (int i = 0; i < 5; ++i) out[i] = c[i];
+  return 0;
 }
 
-// values: int64[n]; counts: int32[2^pbits * blocks], blocks = ceil(n /
-// agc_set_part_chunk()), partition-major.
-extern "C" int agc_set_partition_count(const int64_t* values, int64_t n, uint64_t hash, int bits,
-                                       int pbits, int32_t* counts, void* stream) {
+namespace {
+
+// The arguments both partition passes check: pbits in [1, 10], the bins
+// within the bucket's bits, the grid a positive int.
+bool bad_level(const int64_t* src, int64_t n, int64_t segs, int64_t q, uint64_t hash, int bits,
+               int shift, int pbits) {
+  return src == nullptr || n <= 0 || n > INT32_MAX || segs < 1 || q < 1 ||
+         segs * q > INT32_MAX || (hash & 1) == 0 || bits < 1 || bits > 40 || shift < 0 ||
+         pbits < 1 || pbits > agc::kPartMaxBits || shift + pbits > bits ||
+         (segs << pbits) * q >= INT32_MAX;
+}
+
+}  // namespace
+
+// One partition level's count. src: int64[n]; the source's segments:
+// [0, n) when seg is null (segs = 1), else segment a in [seg[a * stride],
+// seg[(a + 1) * stride]); each cut into q pieces; bins: bits [shift,
+// shift + pbits) of a value's bucket (hash, bits); counts: int32[(segs <<
+// pbits) * q], bin-major within a segment.
+extern "C" int agc_set_partition_count(const int64_t* src, int64_t n, const int32_t* seg,
+                                       int64_t stride, int64_t segs, int64_t q, uint64_t hash,
+                                       int bits, int shift, int pbits, int32_t* counts,
+                                       void* stream) {
   using namespace agc;
-  const int64_t blocks = (n + kPartChunk - 1) / kPartChunk;
-  if (n <= 0) return 0;
-  if (pbits < 1 || pbits > 12 || pbits > bits || blocks > INT32_MAX)
+  if (bad_level(src, n, segs, q, hash, bits, shift, pbits))
     return static_cast<int>(cudaErrorInvalidValue);
-  set_count_kernel<<<static_cast<unsigned>(blocks), 256, sizeof(uint32_t) << pbits,
-                     static_cast<cudaStream_t>(stream)>>>(values, n, hash, bits, pbits, counts);
+  set_count_kernel<<<static_cast<unsigned>(segs * q), kThreads, 0,
+                     static_cast<cudaStream_t>(stream)>>>(src, Pieces{seg, stride, n, q}, hash,
+                                                          bits, shift, pbits, counts);
   return static_cast<int>(cudaGetLastError());
 }
 
-// One table of a set: values: int64[n], in any order (SENTINEL entries are
-// skipped); hash: an odd multiplier; pbits: agc_set_part_bits(bits), and
-// when it is not 0, offsets: the exclusive prefix sum of
-// agc_set_partition_count's counts (int64, same layout) and part: int64[n]
-// scratch; buckets: int64[4 << bits], 16-byte aligned; spill: int64[cap],
-// the values past a bucket's four, in no order; count: u64, the number of
-// them (all, also past cap). Launches: the partition pass (when pbits is
-// not 0), the fill, the inserts.
-extern "C" int agc_set_table_build(const int64_t* values, int64_t n, uint64_t hash, int bits,
-                                   int pbits, const int64_t* offsets, int64_t* part,
-                                   int64_t* buckets, int64_t* spill, int64_t cap,
-                                   unsigned long long* count, void* stream) {
+// The same level's scatter: offsets: int32[(segs << pbits) * q + 1], the
+// exclusive sums of the counts and then n; out: int64[n], the values by
+// bin, a segment's bins in turn (the next level's segments: seg = offsets,
+// stride = q).
+extern "C" int agc_set_partition_scatter(const int64_t* src, int64_t n, const int32_t* seg,
+                                         int64_t stride, int64_t segs, int64_t q,
+                                         uint64_t hash, int bits, int shift, int pbits,
+                                         const int32_t* offsets, int64_t* out, void* stream) {
   using namespace agc;
-  if (bits < 1 || bits > 40 || n < 0 || cap < 0 || (hash & 1) == 0 || pbits < 0 ||
-      pbits > 12 || pbits > bits || reinterpret_cast<uintptr_t>(buckets) % 16 != 0)
+  if (bad_level(src, n, segs, q, hash, bits, shift, pbits))
     return static_cast<int>(cudaErrorInvalidValue);
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (pbits > 0 && n > 0) {
-    const size_t smem = kPartChunk * sizeof(int64_t) + ((sizeof(int64_t) + 8) << pbits);
-    cudaError_t e = cudaFuncSetAttribute(set_scatter_kernel,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         static_cast<int>(smem));
-    if (e != cudaSuccess) return static_cast<int>(e);
-    set_scatter_kernel<<<static_cast<unsigned>((n + kPartChunk - 1) / kPartChunk), kThreads,
-                         smem, st>>>(values, n, hash, bits, pbits, offsets, part);
-    values = part;
-  }
-  const int64_t halves = int64_t{2} << bits;
-  set_fill_kernel<<<grid_for(halves), 256, 0, st>>>(reinterpret_cast<longlong2*>(buckets),
-                                                     halves, count);
-  const cudaError_t e = cudaGetLastError();
-  if (e != cudaSuccess || n == 0) return static_cast<int>(e);
-  const int64_t blocks = (n + kSetAhead * 256 - 1) / (kSetAhead * 256);
-  if (blocks > INT32_MAX) return static_cast<int>(cudaErrorInvalidValue);
-  set_insert_kernel<<<static_cast<unsigned>(blocks), 256, 0, st>>>(
-      values, n, hash, bits, reinterpret_cast<long long*>(buckets), spill, cap, count);
+  const cudaError_t e = cudaFuncSetAttribute(set_scatter_kernel,
+                                             cudaFuncAttributePreferredSharedMemoryCarveout,
+                                             cudaSharedmemCarveoutMaxShared);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  set_scatter_kernel<<<static_cast<unsigned>(segs * q), kThreads, 0,
+                       static_cast<cudaStream_t>(stream)>>>(src, Pieces{seg, stride, n, q},
+                                                            hash, bits, shift, pbits, offsets,
+                                                            out);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// One table of a set, 2^bits buckets, slice by slice: src: int64[n] (SENTINEL
+// entries are skipped); bounds: null (every block reads all of src and keeps
+// its slice's values) or the last partition level's offsets, slice t's
+// values in [bounds[t * stride], bounds[(t + 1) * stride]); hash: an odd
+// multiplier; buckets: int64[4 << bits], 16-byte aligned, written whole;
+// spill: int64[cap], the values past a bucket's four, in no order; status:
+// u64[slices], zero; count: int64, the spill's size (all of it, also past
+// cap). One launch.
+extern "C" int agc_set_slice_build(const int64_t* src, int64_t n, const int32_t* bounds,
+                                   int64_t stride, uint64_t hash, int bits, int64_t* buckets,
+                                   int64_t* spill, int64_t cap, uint64_t* status, int64_t* count,
+                                   void* stream) {
+  using namespace agc;
+  if (bits < 1 || bits > 40 || n < 0 || n > INT32_MAX || cap < 0 || (hash & 1) == 0 ||
+      (bounds != nullptr && stride < 1) || reinterpret_cast<uintptr_t>(buckets) % 16 != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int sbits = bits < kSetSliceBits ? bits : kSetSliceBits;
+  const int64_t slices = int64_t{1} << (bits - sbits);
+  // partitions are of whole 2^kSetSliceBits-bucket slices; an unpartitioned
+  // set goes to at most kSetDirectSlices blocks, each reading all of it
+  if (slices > INT32_MAX || (bounds != nullptr && sbits != kSetSliceBits) ||
+      (bounds == nullptr && n > 0 && slices > kSetDirectSlices))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int smem = 36 << sbits;  // the image, 32 bytes a bucket, and a tie counter a bucket
+  cudaError_t e = cudaFuncSetAttribute(set_slice_kernel,
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  // all of the SM's shared memory: three blocks of a 2^11-bucket slice
+  if (e == cudaSuccess)
+    e = cudaFuncSetAttribute(set_slice_kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
+                             cudaSharedmemCarveoutMaxShared);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  set_slice_kernel<<<static_cast<unsigned>(slices), kSliceThreads, smem,
+                     static_cast<cudaStream_t>(stream)>>>(
+      src, n, bounds, stride, hash, bits, sbits, reinterpret_cast<longlong2*>(buckets), spill,
+      cap, status, count);
   return static_cast<int>(cudaGetLastError());
 }

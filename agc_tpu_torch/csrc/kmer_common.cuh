@@ -168,6 +168,62 @@ __device__ __forceinline__ void lookup(const Singles& s, const int64_t (&v)[P],
   }
 }
 
+// A device-wide exclusive scan by decoupled look-back (set_table's spill
+// and walk_index's singletons): block t publishes its own count in
+// status[t] (flag kFlagOwn), then the sum of every block up to and with it
+// (kFlagPrefix), value below the flag. Blocks start in index order (as in
+// CUB's single-pass scans), so a block waits only on blocks that run or
+// have run. status is zero when the kernel starts.
+constexpr uint64_t kFlagOwn = uint64_t(1) << 62;
+constexpr uint64_t kFlagPrefix = uint64_t(2) << 62;
+constexpr uint64_t kFlagValue = kFlagOwn - 1;
+
+__device__ __forceinline__ uint64_t load_relaxed(const uint64_t* p) {
+  uint64_t v;
+  asm volatile("ld.relaxed.gpu.global.u64 %0, [%1];" : "=l"(v) : "l"(p) : "memory");
+  return v;
+}
+
+__device__ __forceinline__ void store_relaxed(uint64_t* p, uint64_t v) {
+  asm volatile("st.relaxed.gpu.global.u64 [%0], %1;" ::"l"(p), "l"(v) : "memory");
+}
+
+// Every thread of block t > 0 (kN threads): the sum of the counts of blocks
+// 0 .. t-1. Each pass reads the words of the kN blocks below `look`, a
+// thread each, each thread waiting until its word is set, and adds them
+// down to the nearest that holds a prefix, so every thread gets the sum.
+// scratch: kN / 32 words.
+template <int kN>
+__device__ __forceinline__ int64_t look_back(const uint64_t* status, int64_t t,
+                                             int64_t* scratch) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  int64_t sum = 0;
+  for (int64_t look = t - 1;; look -= kN) {
+    const int64_t i = look - threadIdx.x;
+    uint64_t w = kFlagPrefix;  // below block 0: a prefix of 0
+    if (i >= 0) {
+      while (((w = load_relaxed(status + i)) >> 62) == 0) __nanosleep(32);
+    }
+    // the nearest block with a prefix: the least thread whose word has one
+    const unsigned pre = __ballot_sync(0xffffffffu, (w >> 62) == 2);
+    if (lane == 0) scratch[warp] = pre ? 32 * warp + __ffs(pre) - 1 : kN;
+    __syncthreads();
+    int stop = kN;
+#pragma unroll
+    for (int v = 0; v < kN / 32; ++v) stop = min(stop, static_cast<int>(scratch[v]));
+    int64_t x = static_cast<int>(threadIdx.x) <= stop ? static_cast<int64_t>(w & kFlagValue) : 0;
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
+    __syncthreads();  // every thread has read the stops
+    if (lane == 0) scratch[warp] = x;
+    __syncthreads();
+#pragma unroll
+    for (int v = 0; v < kN / 32; ++v) sum += scratch[v];
+    __syncthreads();  // scratch is rewritten by the next pass
+    if (stop < kN) return sum;
+  }
+}
+
 struct MixSet {
   uint32_t* bits;
   int32_t* dir;

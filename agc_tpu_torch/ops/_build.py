@@ -107,13 +107,15 @@ def _bind(lib) -> None:
     u64t = ctypes.c_uint64
     lib.agc_kmer_dir_rc.argtypes = [vp, i64, i64, i32, vp, vp, vp, vp, vp, u64t, i32, vp, u64t,
                                     i32, vp, i64, vp]
-    lib.agc_set_table_build.argtypes = [vp, i64, u64t, i32, i32, vp, vp, vp, vp, i64, vp, vp]
-    lib.agc_set_partition_count.argtypes = [vp, i64, u64t, i32, i32, vp, vp]
-    lib.agc_set_part_chunk.argtypes = []
-    lib.agc_set_part_bits.argtypes = [i32]
+    lib.agc_set_slice_build.argtypes = [vp, i64, vp, i64, u64t, i32, vp, vp, i64, vp, vp, vp]
+    lib.agc_set_partition_count.argtypes = [vp, i64, vp, i64, i64, i64, u64t, i32, i32, i32, vp,
+                                            vp]
+    lib.agc_set_partition_scatter.argtypes = [vp, i64, vp, i64, i64, i64, u64t, i32, i32, i32,
+                                              vp, vp, vp]
+    lib.agc_set_build_constants.argtypes = [vp]
     lib.agc_walk_index_tile.argtypes = []
-    lib.agc_walk_singles_count.argtypes = [vp, i64, vp, vp]
-    lib.agc_walk_index.argtypes = [vp, i64, vp, vp, i64, i32, vp, vp]
+    lib.agc_walk_singles.argtypes = [vp, i64, vp, vp, vp, vp]
+    lib.agc_walk_dir.argtypes = [vp, i64, i32, vp, vp]
     lib.agc_greedy_walk.argtypes = [vp, vp, vp, i64, vp, vp, i32, i64, i32, vp, vp]
     lib.agc_scan_fused_tile.argtypes = []
     lib.agc_member_mix.argtypes = [vp, i64, vp, i32, vp, vp, vp]
@@ -132,10 +134,10 @@ def _bind(lib) -> None:
                                    vp, i64, i64, vp, vp, vp]
     lib.agc_rans_decode.argtypes = [vp, i64, vp, vp, vp, vp, vp, vp, i64, vp, vp]
     for fn in (lib.agc_scan_fused, lib.agc_kmer_canon, lib.agc_kmer_dir_rc,
-               lib.agc_set_table_build, lib.agc_set_partition_count, lib.agc_set_part_chunk,
-               lib.agc_set_part_bits,
-               lib.agc_walk_index_tile,
-               lib.agc_walk_singles_count, lib.agc_walk_index, lib.agc_greedy_walk,
+               lib.agc_set_slice_build, lib.agc_set_partition_count,
+               lib.agc_set_partition_scatter, lib.agc_set_build_constants,
+               lib.agc_walk_index_tile, lib.agc_walk_singles, lib.agc_walk_dir,
+               lib.agc_greedy_walk,
                lib.agc_scan_fused_tile, lib.agc_member_mix, lib.agc_mix_set_words,
                lib.agc_mix_dir_bits, lib.agc_mix_set_debug, lib.agc_dir_mix,
                lib.agc_match_estimate_tile, lib.agc_match_estimate,

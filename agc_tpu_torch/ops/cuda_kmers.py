@@ -21,7 +21,7 @@ it on the H100 and what its design does about that:
 - ``greedy_walk`` (csrc/greedy_walk.cu): the singleton greedy splitter
   walk; replaces the XLA ``lax.while_loop`` ``_greedy_over_canon``. Its
   lookups go through an index of the pool's singletons that
-  ``walk_index`` (same source) builds once a walk.
+  ``walk_index`` (same source) builds once a pool.
 - ``member_mix``  (csrc/member_mix.cu): membership of precomputed XOR-mixes
   in a sorted mix table; replaces the Pallas ``member_mix_pallas``, and is
   the membership stage of the large-table join.
@@ -48,6 +48,7 @@ Conventions (``ops/u64.py``): k-mer codes are int64 with bit 63 flipped
 
 from __future__ import annotations
 
+import ctypes
 import threading
 from dataclasses import dataclass
 
@@ -347,6 +348,17 @@ def kmer_dir_rc(packed2d: torch.Tensor, k: int, index=None):
 # ---------------------------------------------------------------------------
 
 SET_SLOTS = 4  # csrc/kmer_canon.cu's kSetSlots: int64 slots a bucket
+# csrc/kmer_canon.cu's build: buckets of a slice (kSetSliceBits), values a
+# slice's block sorts in shared memory (kSliceCap; a slice of more goes
+# through the atomicMin chains), values a partition block stages at once
+# (kPartChunk), bins of a partition level (kPartMaxBits); a table of up to
+# SET_DIRECT_SLICES slices is not partitioned. _set_level checks them all
+# against the library's (agc_set_build_constants) before a build.
+SET_SLICE_BITS = 11
+SET_SLICE_CAP = (28 << SET_SLICE_BITS) // 8
+SET_PART_CHUNK = 4096
+SET_PART_MAX_BITS = 10
+SET_DIRECT_SLICES = 4
 # the odd multipliers of the two tables' hashes (golden ratio, murmur3's c1)
 SET_HASH = (0x9E3779B97F4A7C15, 0xFF51AFD7ED558CCD)
 
@@ -447,53 +459,90 @@ def set_lookup_plain(table: SetTable, codes: torch.Tensor) -> torch.Tensor:
     return hit & (codes != u64.SENTINEL)
 
 
+def set_partition_plan(n: int, bits: int) -> list:
+    """The partition levels that move an n-value set to the slices of a
+    2^bits-bucket table before the build: [] for a table of up to
+    ``SET_DIRECT_SLICES`` slices (each slice's block reads the whole set),
+    else one level of at most 2^``SET_PART_MAX_BITS`` bins, or two. A level
+    is (pbits, shift, segs, q): bins are bits [shift, shift + pbits) of a
+    value's bucket, over ``segs`` segments (the bins of the level before)
+    cut into q pieces of about ``SET_PART_CHUNK`` values each."""
+    t = bits - min(bits, SET_SLICE_BITS)
+    if (1 << t) <= SET_DIRECT_SLICES or n == 0:
+        return []
+    widths = [t] if t <= SET_PART_MAX_BITS else [(t + 1) // 2, t // 2]
+    plan, segs, shift = [], 1, bits
+    for p in widths:
+        shift -= p
+        plan.append((p, shift, segs, max(1, -(-n // (segs * SET_PART_CHUNK)))))
+        segs <<= p
+    return plan
+
+
 def _set_level(values: torch.Tensor, bits: int, mult: int):
-    """One table's build on the card, 2^bits buckets: over 2^19 buckets,
-    the values counted by slice of the table and moved to their slices
-    (``torch.cumsum`` of the counts between the two); then the fill and
-    the inserts; one host sync for the spill's size. The spill's room
-    is a sixteenth of the values; values that need more (a crafted set)
-    are built again with room for all of it."""
+    """One table's build on the card, 2^bits buckets, and its spill: the
+    values moved to the table's slices by ``set_partition_plan``'s levels
+    (each a count, ``torch.cumsum`` of the counts and a scatter; a first of
+    two levels writes into the table's memory, which the build overwrites),
+    then one launch a block a slice; one host sync for the spill's size.
+    The spill's room is a sixteenth of the values when the set was
+    partitioned (all of them otherwise); values that need more (a crafted
+    set) are built again, from the same partitions, with room for all."""
     n = values.numel()
     dev = values.device
     lib = _build.lib()
+    built = (ctypes.c_int64 * 5)()
+    lib.agc_set_build_constants(built)
+    _require(tuple(built) == (SET_SLICE_BITS, SET_SLICE_CAP, SET_PART_CHUNK, SET_PART_MAX_BITS,
+                              SET_DIRECT_SLICES),
+             "set_table: the kernel library's build constants differ from cuda_kmers'")
+    _require(n < 1 << 31, "set_table: a set of 2^31 values or more is over the int32 offsets")
+    st = _stream(values)
     buckets = torch.empty(SET_SLOTS << bits, dtype=torch.int64, device=dev)
-    count = torch.empty(1, dtype=torch.int64, device=dev)
-    pbits = lib.agc_set_part_bits(bits)
-    offsets = part = None
-    if pbits and n:
-        # the table's 16 MB slices: the values moved to them in turn
-        blocks = -(-n // lib.agc_set_part_chunk())
-        counts = torch.empty((1 << pbits) * blocks, dtype=torch.int32, device=dev)
-        with torch.cuda.device(dev):
-            _build.check(lib.agc_set_partition_count(values.data_ptr(), n, mult, bits, pbits,
-                                                     counts.data_ptr(), _stream(values)),
+    src, bounds, stride = values, None, 0
+    plan = set_partition_plan(n, bits)
+    with torch.cuda.device(dev):
+        for i, (pbits, shift, segs, q) in enumerate(plan):
+            out = (torch.empty(n, dtype=torch.int64, device=dev) if i == len(plan) - 1
+                   else buckets[:n])
+            seg = None if bounds is None else bounds.data_ptr()
+            counts = torch.empty((segs << pbits) * q, dtype=torch.int32, device=dev)
+            _build.check(lib.agc_set_partition_count(src.data_ptr(), n, seg, stride, segs, q,
+                                                     mult, bits, shift, pbits,
+                                                     counts.data_ptr(), st), "set_table")
+            offsets = torch.empty(counts.numel() + 1, dtype=torch.int32, device=dev)
+            offsets[0] = 0
+            torch.cumsum(counts, 0, dtype=torch.int32, out=offsets[1:])
+            del counts
+            _build.check(lib.agc_set_partition_scatter(src.data_ptr(), n, seg, stride, segs, q,
+                                                       mult, bits, shift, pbits,
+                                                       offsets.data_ptr(), out.data_ptr(), st),
                          "set_table")
-        offsets = torch.cumsum(counts, 0, dtype=torch.int64) - counts
-        part = torch.empty(n, dtype=torch.int64, device=dev)
-    cap = n // 16 + 64
-    while True:
-        spill = torch.empty(cap, dtype=torch.int64, device=dev)
-        with torch.cuda.device(dev):
-            rc = lib.agc_set_table_build(
-                values.data_ptr(), n, mult, bits, pbits,
-                None if offsets is None else offsets.data_ptr(),
-                None if part is None else part.data_ptr(), buckets.data_ptr(),
-                spill.data_ptr(), cap, count.data_ptr(), _stream(values))
-        _build.check(rc, "set_table")
-        _count("set_table")
-        m = int(count)  # the spill's size: one host sync a table
-        if m <= cap:
-            return SetLevel(buckets, bits, mult), spill[:m]
-        cap = m
+            src, bounds, stride = out, offsets, q
+        cap = n if bounds is None else n // 16 + 64
+        slices = 1 << (bits - min(bits, SET_SLICE_BITS))
+        count = torch.empty(1, dtype=torch.int64, device=dev)
+        while True:
+            spill = torch.empty(cap, dtype=torch.int64, device=dev)
+            status = torch.zeros(slices, dtype=torch.int64, device=dev)
+            rc = lib.agc_set_slice_build(
+                src.data_ptr(), n, None if bounds is None else bounds.data_ptr(), stride, mult,
+                bits, buckets.data_ptr(), spill.data_ptr(), cap, status.data_ptr(),
+                count.data_ptr(), st)
+            _build.check(rc, "set_table")
+            _count("set_table")
+            m = int(count)  # the spill's size: one host sync a table
+            if m <= cap:
+                return SetLevel(buckets, bits, mult), spill[:m]
+            cap = m
 
 
 def set_table(values: torch.Tensor) -> SetTable:
     """The ``SetTable`` of a sorted set of flipped int64 codes (a value
     held twice takes two slots, SENTINEL none), built on the card: the
     first table over the set, the second over its spill, in the order the
-    first's inserts left it; the second's spill, sorted by ``torch.sort``,
-    is the tail."""
+    first's slice blocks left it; the second's spill, sorted by
+    ``torch.sort``, is the tail."""
     _require(values.dim() == 1 and values.dtype == torch.int64,
              "set_table: values must be int64[n]")
     if values.device.type == "cpu":
@@ -624,7 +673,8 @@ def walk_index(pool: torch.Tensor):
     u32 bit patterns), bits = ``index_bits(S)``. dir[b] is the first
     offset into singles whose bucket (``pool_buckets``) is >= b, so a
     value v is a singleton iff it lies in singles[dir[b] : dir[b + 1]] for
-    b = its bucket.
+    b = its bucket. On the card singles is a view of a buffer of the
+    pool's length.
 
     pool: sorted int64[P]; S < 2^32 - 1."""
     _require(pool.dim() == 1 and pool.dtype == torch.int64,
@@ -633,24 +683,29 @@ def walk_index(pool: torch.Tensor):
         return walk_index_plain(pool)
     _check_cuda("walk_index", pool)
     p = pool.numel()
+    dev = pool.device
     lib = _build.lib()
-    tile = lib.agc_walk_index_tile()
-    counts = torch.empty(-(-p // tile), dtype=torch.int64, device=pool.device)
-    with torch.cuda.device(pool.device):
-        _build.check(lib.agc_walk_singles_count(pool.data_ptr(), p, counts.data_ptr(),
-                                                _stream(pool)), "walk_index")
-        ends = torch.cumsum(counts, 0)
-        # the singletons' count sizes the outputs: one host sync a walk
-        s = int(ends[-1]) if ends.numel() else 0
+    # S is known only after the one pass over the pool: the singletons'
+    # room is the pool's length
+    singles = torch.empty(p, dtype=torch.int64, device=dev)
+    with torch.cuda.device(dev):
+        s = 0
+        if p:
+            status = torch.zeros(-(-p // lib.agc_walk_index_tile()), dtype=torch.int64,
+                                 device=dev)
+            total = torch.empty(1, dtype=torch.int64, device=dev)
+            _build.check(lib.agc_walk_singles(pool.data_ptr(), p, status.data_ptr(),
+                                              singles.data_ptr(), total.data_ptr(),
+                                              _stream(pool)), "walk_index")
+            s = int(total)  # one host read, after the pass
+            del status, total
         _require(s < (1 << 32) - 1, f"walk_index: {s} singletons are over the u32 offsets")
         bits = index_bits(s)
-        singles = torch.empty(s, dtype=torch.int64, device=pool.device)
-        dirs = torch.empty((1 << bits) + 1, dtype=torch.int32, device=pool.device)
-        rc = lib.agc_walk_index(pool.data_ptr(), p, ends.data_ptr(), singles.data_ptr(),
-                                s, bits, dirs.data_ptr(), _stream(pool))
-    _build.check(rc, "walk_index")
+        dirs = torch.empty((1 << bits) + 1, dtype=torch.int32, device=dev)
+        _build.check(lib.agc_walk_dir(singles.data_ptr(), s, bits, dirs.data_ptr(),
+                                      _stream(pool)), "walk_index")
     _count("walk_index")
-    return singles, dirs
+    return singles[:s], dirs
 
 
 # ---------------------------------------------------------------------------

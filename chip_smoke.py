@@ -40,14 +40,17 @@ Phases (any failure exits non-zero before the result line):
    seam-packed rows with invalid symbols on tile boundaries, without a
    set and with a singleton table, an empty one, one of bit-63 values and
    one crafted so that buckets of both its tables overflow, each set's
-   table against set_table_plain, then timed at 1 x 64 Mi symbols, k=31,
+   table against set_table_plain, and set_table against it at the
+   splitter tables' sizes (1,120, 4,096, 11,489 values: no partition
+   level), at 16,385 and 300,000 (one level) and on a set whose spill
+   outgrows its first room; then timed at 1 x 64 Mi symbols, k=31,
    without a set and with the chr-scale pool's 55.6 M singletons (their
    set_table built, held against its plain version and timed, its bytes
    and spill printed, and isin_sorted on the same codes timed beside the
    lookups, with torch.take's random-read rate at 16 MB and at the
    table's bytes, the lookups with the spill path cut, and set_table's
    peak device memory at the set a pool of _POOL_CARD_MAX positions
-   would give); match_estimate (the match layer's
+   would give, and walk_index's at such a pool); match_estimate (the match layer's
    estimate of (segment row, candidate group) pairs) at key_len 16 and 17,
    strides 4, 8 and 16, on rows of invalid keys only, hits in the first
    and last probe block, a run that starts right after the kernel's tile
@@ -102,12 +105,15 @@ Phases (any failure exits non-zero before the result line):
    default parameters, so discovery is value-sampled (the reference is
    over _POOL_DEVICE_MAX) and every scan goes through the join (over 8192
    splitters): wall, Mbases/s, stage timers, splitter count, the launch
-   counts of that run; the discovery again with every kmer_canon and
+   counts of that run (one walk_index of the sampled pool for all three
+   contigs; the splitter count checked); the discovery again with every
+   kmer_canon and
    greedy_walk call held against its plain version on the card at this
    path's shapes (chr1-3 rows, whole contigs over the sampled pool) and
    the plain versions' splitter set equal to the archive's; one
    kmer_canon call on the chr1 row and one walk of chr1 over the sampled
-   pool timed with CUDA events (walk_index and greedy_walk apart), and
+   pool timed with CUDA events (walk_index, held against its plain
+   version, with its peak device memory, and greedy_walk apart), and
    every sample extracted byte-equal through agc_tpu_torch.AGCFile;
 8. the adaptive create at full width: the phase 7
    reference with -a (k=31, segment 60000), its full k-mer pool on the
@@ -115,8 +121,9 @@ Phases (any failure exits non-zero before the result line):
    contigs (one of 2 Mbases, over _HOST_NEW_SPLITTERS_MAX, so the card's
    new-splitter path runs, and eight of 100-500 kbases, the host path;
    the second sample holds mutated copies of them first): wall,
-   Mbases/s, stage timers, peak device memory, splitters from discovery
-   and added at barriers, launch counts; every kmer_canon and greedy_walk
+   Mbases/s, stage timers, peak device memory (and discovery's
+   walk_index's own), splitters from discovery and added at barriers,
+   launch counts; every kmer_canon and greedy_walk
    call of the new-splitter path kept during the timed create and held
    against its plain version on the card after it; discovery's splitters
    against the port's host full-pool path (_POOL_CARD_MAX lowered to 0)
@@ -223,6 +230,8 @@ SEED = 20260816
 ALPHA = b"ACGT"
 # GRCh38 chr1, chr2, chr3 (the whole-genome path's reference, phase 7)
 GRCH38_CHR1_3 = (248_956_422, 242_193_529, 198_295_559)
+# the splitters the whole-genome create of this seed's input finds
+WHOLE_GENOME_SPLITTERS = 11_489
 # The least time the card could take (bound_ms): bytes over HBM's
 # 3.35 TB/s, or integer operations over the int32 rate, whichever is
 # larger. The H100 SXM data sheet's 67 TFLOP/s float32 counts an FMA as
@@ -321,9 +330,57 @@ def overflowing_set(np, torch, ck, vals, rng):
     return out
 
 
-# set_table's kernels: the partition count and scatter (tables of more
-# than 2^19 buckets), the fill, the inserts
-SET_KERNELS = ("set_count_kernel", "set_scatter_kernel", "set_fill_kernel", "set_insert_kernel")
+# set_table's kernels: a partition level's count and scatter (tables of
+# more than four slices), the slice build
+SET_KERNELS = ("set_count_kernel", "set_scatter_kernel", "set_slice_kernel")
+INDEX_KERNELS = ("singles_kernel", "dir_kernel")  # walk_index's
+
+
+def set_sizes(np, torch, ck, dev) -> int:
+    """set_table against set_table_plain on sets of the sizes its callers
+    build: the mesh create's 1,120 splitters, entry()'s 4,096, whole-genome
+    discovery's 11,489 (no partition level, a launch a table), 16,385 and
+    300,000 values (one level), and 40,000 values with 4,000 more crowded
+    into 50 buckets, whose spill outgrows its first room (the build runs
+    again), and with 9,000 more in one slice, which the atomicMin chains
+    build. Returns the largest max_abs_err (checked to be 0)."""
+    rng = np.random.default_rng(SEED + 31)
+    worst = 0
+
+    def distinct(n):
+        v = torch.from_numpy(rng.integers(-(1 << 63), SENTINEL - 1, n + n // 8 + 16,
+                                          dtype=np.int64))
+        return torch.unique(v)[:n].to(dev)
+
+    sets = {n: distinct(n) for n in (1_120, 4_096, 11_489, 16_385, 300_000)}
+    base = distinct(40_000)
+    bits = ck.set_bits(44_000)
+    picks = ck.set_bucket(base[:50], bits, ck.SET_HASH[0]).tolist()
+    crowd = torch.cat([colliding(np, torch, ck, rng, 80, [(bits, ck.SET_HASH[0], b)], dev)
+                       for b in picks])
+    sets["crowded"] = torch.unique(torch.cat([base, crowd]))
+    check(ck.set_bits(sets["crowded"].numel()) == bits, "the crowded set changed its bits")
+    # 9,000 more in one slice of 16: past the room a block sorts in, so that
+    # slice goes through the atomicMin chains
+    sbits = bits - ck.SET_SLICE_BITS
+    full = colliding(np, torch, ck, rng, 9_000, [(sbits, ck.SET_HASH[0], 3)], dev)
+    sets["overfull slice"] = torch.unique(torch.cat([base, full]))
+    check(ck.set_bits(sets["overfull slice"].numel()) == bits
+          and int((ck.set_bucket(sets["overfull slice"], sbits) == 3).sum()) > ck.SET_SLICE_CAP,
+          "the overfull slice fits the sorted path")
+    for name, values in sets.items():
+        n = values.numel()
+        got = ck.set_table(values)
+        e = set_table_err(torch, ck, got, ck.set_table_plain(values))
+        plan = [p for p, *_ in ck.set_partition_plan(n, got.first.bits)]
+        print(f"set_table at {name} ({n} values): 2^{got.first.bits} + 2^{got.second.bits} "
+              f"buckets, partition levels {plan}, {got.n_spilled} spilled, "
+              f"{got.tail.numel()} to the tail, max_abs_err {e}")
+        check(e == 0, f"set_table disagrees with its plain version at {name} ({e})")
+        if name == "crowded":
+            check(got.n_spilled > n // 16 + 64, "the crowded set's spill fit its first room")
+        worst = max(worst, e)
+    return worst
 
 
 def set_table_err(torch, ck, got, want) -> int:
@@ -391,6 +448,25 @@ def index_bound(n_pool: int, singles, dirs) -> tuple[float, str]:
     (8 bytes each) and the directory (4 bytes an entry) written once; two
     compares an entry."""
     return bound(8 * n_pool + 8 * singles.numel() + 4 * dirs.numel(), 2 * n_pool)
+
+
+def three_pass_bytes(n_pool: int, singles, dirs) -> int:
+    """What PR 13's three-pass walk_index held at its peak: the singletons
+    (8 bytes each), the directory (4 an entry) and 16 bytes a 4,096-entry
+    tile of counts."""
+    return 8 * singles.numel() + 4 * dirs.numel() + 16 * -(-n_pool // 4096)
+
+
+def index_peak(torch, ck, pool) -> tuple[int, int]:
+    """walk_index's peak device memory beside the pool, and the three-pass
+    build's (three_pass_bytes)."""
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    singles, dirs = ck.walk_index(pool)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - base
+    return peak, three_pass_bytes(pool.numel(), singles, dirs)
 
 
 def index_err(torch, got, want) -> int:
@@ -880,7 +956,24 @@ def adaptive_create(np, torch, ck, tk, cmod, Compressor, CompressorParams, creat
         real_determine(self, reference_file)
         discovered.append(set(self._splitter_set))
 
+    # walk_index's own peak device memory at discovery's pool: the create's
+    # peak counter is reset before each build and the peak before it kept
+    peaks_before, index_peaks = [], []
+    real_index = ck.walk_index
+
+    def index_measured(pool):
+        torch.cuda.synchronize()
+        peaks_before.append(torch.cuda.max_memory_allocated())
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        got = real_index(pool)
+        torch.cuda.synchronize()
+        index_peaks.append((pool.numel(), torch.cuda.max_memory_allocated() - base,
+                            three_pass_bytes(pool.numel(), *got)))
+        return got
+
     saved = tk.kmer_canon, tk.greedy_walk
+    ck.walk_index = index_measured
     tk.kmer_canon = keeping("kmer_canon", ck.kmer_canon)
     tk.greedy_walk = keeping("greedy_walk", ck.greedy_walk)
     Compressor._find_new_splitters = find_held
@@ -907,11 +1000,12 @@ def adaptive_create(np, torch, ck, tk, cmod, Compressor, CompressorParams, creat
         launches = dict(ck.LAUNCHES)
     finally:
         tk.kmer_canon, tk.greedy_walk = saved
+        ck.walk_index = real_index
         Compressor._find_new_splitters = real_find
         Compressor.determine_splitters = real_determine
         for mod, name, fn in saved_disc:
             setattr(mod, name, fn)
-    peak = torch.cuda.max_memory_allocated()
+    peak = max([torch.cuda.max_memory_allocated(), *peaks_before])
     reader = ArchiveReader(out)
     data, n_split = reader.get_part("splitters", 0)
     reader.close()
@@ -929,6 +1023,13 @@ def adaptive_create(np, torch, ck, tk, cmod, Compressor, CompressorParams, creat
         check(launches[name] > 0, f"the adaptive create never launched {name}")
         results[name]["adaptive_create_launches"] = launches[name]
     results["kmer_canon"]["adaptive_peak_bytes"] = peak
+    check(len(index_peaks) == 1, f"discovery built {len(index_peaks)} walk indexes, not 1")
+    wi = results["walk_index"]
+    wi["adaptive_pool"], wi["adaptive_peak_bytes"], wi["adaptive_three_pass_bytes"] = (
+        index_peaks[0])
+    print(f"adaptive discovery's walk_index over pool {index_peaks[0][0]}: peak device memory "
+          f"{index_peaks[0][1]} bytes beside the pool, the three-pass build's "
+          f"{index_peaks[0][2]} ({card})")
     check(n_split > len(disc) and disc <= got, "the adaptive create added no splitter")
     plains = {"kmer_canon": ck.kmer_canon_plain, "greedy_walk": ck.greedy_walk_plain}
     for name, calls in kept.items():
@@ -2854,6 +2955,7 @@ def main() -> int:
         check(e == 0, f"kmer_canon disagrees with its plain version at k={hk} ({e})")
         kc_err = max(kc_err, e)
     dr_err, st_err = dir_rc_hard(np, torch, ck, u64, hard)
+    st_err = max(st_err, set_sizes(np, torch, ck, dev))
     del hard
     cpacked = torch.from_numpy(tk.pack4_np(ref)[None, :]).to(dev)
     canon = ck.kmer_canon(cpacked, k)
@@ -2906,7 +3008,7 @@ def main() -> int:
     results["walk_index"] = dict(
         source="agc_tpu_torch/csrc/greedy_walk.cu",
         replaces="agc_tpu/ops/kmers.py:599",
-        max_abs_err=e,
+        max_abs_err=max(walk_err, e),
         ms=cuda_ms(torch, lambda: ck.walk_index(pool), 10),
         plain_ms=cuda_ms(torch, lambda: ck.walk_index_plain(pool), 2),
         library_ms=None,
@@ -2914,10 +3016,17 @@ def main() -> int:
         shape=f"pool {pool.numel()}: {idx[0].numel()} singletons, {idx[1].numel()} "
               "directory entries",
     )
+    wi = results["walk_index"]
+    wi["peak_bytes"], wi["three_pass_bytes"] = index_peak(torch, ck, pool)
+    print(f"walk_index at pool {pool.numel()}: {wi['ms']:.4f} ms (bound {wi['bound'][0]:.4f}), "
+          f"peak device memory {wi['peak_bytes']} bytes beside the pool, the three-pass "
+          f"build's {wi['three_pass_bytes']} ({card})")
     # kmer_dir_rc at 1 x 64 Mi symbols, k=31: without a set (the segment
     # scans of -f) and with the pool's singletons (-f discovery's dense
     # scan against the singleton table), through that set's table
-    singles = idx[0]
+    # an exact copy: a view would hold the index's pool-length buffer
+    # through the later phases (phase 8's peak memory counts what is held)
+    singles = idx[0].clone()
     sti = ck.set_table(singles)
     et = set_table_err(torch, ck, sti, ck.set_table_plain(singles))
     check(et == 0, f"set_table disagrees with its plain version at the 64 Mi set ({et})")
@@ -2981,11 +3090,13 @@ def main() -> int:
     split = rans_split(torch, {
         "set_table": (lambda: ck.set_table(singles), SET_KERNELS),
         "kmer_dir_rc with the set": (lambda: ck.kmer_dir_rc(cpacked, k, sti),
-                                     ("kmer_dir_rc_kernel",))})
-    sk = split["set_table"]
+                                     ("kmer_dir_rc_kernel",)),
+        "walk_index": (lambda: ck.walk_index(pool), INDEX_KERNELS)})
+    sk, wk = split["set_table"], split["walk_index"]
     results["set_table"]["kernel_ms"] = sk and sum(sk[n] for n in SET_KERNELS)
-    print("set_table and kmer_dir_rc with the set split by torch.profiler (device ms a call): "
-          + json.dumps(split) + f" ({card})")
+    results["walk_index"]["kernel_ms"] = wk and sum(wk[n] for n in INDEX_KERNELS)
+    print("set_table, kmer_dir_rc with the set and walk_index split by torch.profiler (device "
+          "ms a call): " + json.dumps(split) + f" ({card})")
     # what holds the lookups: the card's random-read rate, torch.take of an
     # int64 a position from 16 MB (in L2) and from a table of the set
     # table's bytes; and the lookups with the spill path cut (the second
@@ -3027,6 +3138,24 @@ def main() -> int:
           f"{stb.nbytes} table bytes, peak device memory of the build {peak} bytes beside the "
           f"set, {big_s:.4f} s ({card})")
     del stb, big
+    torch.cuda.empty_cache()
+    # walk_index's peak device memory at a pool of _POOL_CARD_MAX positions
+    # with phase 3's singleton share (an entry's step from the one before
+    # is 0, a value held again, with probability z = 1 - share^0.5), its
+    # values spread from the least int64 over most of the codes' range as
+    # k-mers' are: made on the card
+    share = idx[0].numel() / pool.numel()
+    n_big = cmod.Compressor._POOL_CARD_MAX
+    big = torch.randint(1, 3 << 33, (n_big,), device=dev, generator=gen)
+    big.mul_(torch.rand(n_big, device=dev, generator=gen) >= 1 - share ** 0.5)
+    big[0] = -(1 << 63)
+    big.cumsum_(0)
+    wi["card_max_pool"] = n_big
+    wi["card_max_peak_bytes"], wi["card_max_three_pass_bytes"] = index_peak(torch, ck, big)
+    print(f"walk_index at a pool of _POOL_CARD_MAX positions ({n_big}): peak device memory "
+          f"{wi['card_max_peak_bytes']} bytes beside the pool, the three-pass build's "
+          f"{wi['card_max_three_pass_bytes']} ({card})")
+    del big
     torch.cuda.empty_cache()
     g = ck.greedy_walk(flat, starts, reals, pool, seg, cap, index=idx)
     gp = ck.greedy_walk_plain(flat, starts, reals, pool, seg, cap)
@@ -3302,8 +3431,13 @@ def main() -> int:
         wlaunch = dict(ck.LAUNCHES)
         for name in ("kmer_canon", "walk_index", "greedy_walk", "member_mix", "dir_mix"):
             check(wlaunch[name] > 0, f"the whole-genome create never launched {name}")
+        # the sampled discovery builds one walk index of its pool for all
+        # three contigs' walks
+        check(wlaunch["walk_index"] == 1,
+              f"the whole-genome create built {wlaunch['walk_index']} walk indexes, not 1")
         for name in ("member_mix", "dir_mix"):
             results[name]["launches"] = wlaunch[name]
+        results["walk_index"]["whole_genome_launches"] = wlaunch["walk_index"]
         reader = ArchiveReader(wout)
         data, w_split = reader.get_part("splitters", 0)
         reader.close()
@@ -3314,6 +3448,8 @@ def main() -> int:
         print("whole-genome stage timers (s): " + json.dumps(
             {n: round(t, 4) for n, t in sorted(wtimes.items(), key=lambda kv: -kv[1])}))
         check(w_split > 8192, f"the whole-genome create has {w_split} splitters, not > 8192")
+        check(w_split == WHOLE_GENOME_SPLITTERS,
+              f"the whole-genome create has {w_split} splitters, not {WHOLE_GENOME_SPLITTERS}")
 
         # the whole-genome discovery once more, each kmer_canon and
         # greedy_walk call held against its plain version on the card at
@@ -3366,9 +3502,13 @@ def main() -> int:
         wargs = first["greedy_walk"]
         w_canon, _s, w_reals, w_pool, w_seg, w_cap = wargs
         w_idx = ck.walk_index(w_pool)
+        e = index_err(torch, w_idx, ck.walk_index_plain(w_pool))
+        check(e == 0, f"walk_index disagrees with its plain version at chr1's pool ({e})")
         wi = results["walk_index"]
         wi["whole_genome_ms"] = cuda_ms(torch, lambda: ck.walk_index(w_pool), 5)
         wi["whole_genome_bound_ms"] = index_bound(w_pool.numel(), *w_idx)[0]
+        wi["whole_genome_peak_bytes"], wi["whole_genome_three_pass_bytes"] = index_peak(
+            torch, ck, w_pool)
         g = ck.greedy_walk(*wargs, index=w_idx)
         probes = walk_positions(g[0].tolist(), int(w_reals[0]), w_seg, w_cap)
         ww = results["greedy_walk"]
@@ -3377,7 +3517,9 @@ def main() -> int:
         print(f"whole-genome chr1: kmer_canon {wc['whole_genome_ms']:.4f} ms over "
               f"{2 * cpk.numel()} positions (bound {wc['whole_genome_bound_ms']:.4f} ms); "
               f"walk_index {wi['whole_genome_ms']:.4f} ms over pool {w_pool.numel()} (bound "
-              f"{wi['whole_genome_bound_ms']:.4f} ms); greedy_walk {ww['whole_genome_ms']:.4f} "
+              f"{wi['whole_genome_bound_ms']:.4f} ms; peak device memory "
+              f"{wi['whole_genome_peak_bytes']} bytes beside the pool, the three-pass build's "
+              f"{wi['whole_genome_three_pass_bytes']}); greedy_walk {ww['whole_genome_ms']:.4f} "
               f"ms, {int(g[0, 0])} emissions, {probes} positions to probe (bound "
               f"{ww['whole_genome_bound_ms']:.4f} ms) ({card})")
         del held, first, plain_disc, cpk, wargs, w_canon, w_pool, w_idx, g

@@ -4,9 +4,11 @@ agc_tpu's ``contig_kmers_dir_rc_with_membership`` (JAX on the CPU) and
 ``isin_sorted``, on seeded inputs: k = 15, 17, 31, 32, an empty set, a
 one-value set, bit-63 values, a set crafted so that buckets of both tables
 overflow, and a contig's own singletons as -f builds them. A Python model
-of the build kernel's reads and atomicMin chains, run in shuffled and
-interleaved orders, gives the plain table, which is what makes the card's
-table comparable with it exactly.
+of the build (the partition levels, then a block a slice: its sort by
+bucket in shared memory or, past that room, its atomicMin chains, and its
+spill), run with random partitions, thread orders and slice sizes, gives
+the plain tables, which is what makes the card's tables comparable with
+them exactly.
 """
 
 import jax
@@ -181,51 +183,239 @@ def test_set_bits_bounds_the_table(n):
     assert 32 << bits <= 2 * walk
 
 
-def _insert_model(values: np.ndarray, bits: int, mult: int, rng) -> tuple[np.ndarray, list]:
-    """The insert kernel as Python: each value reads its bucket, skips the
-    slots already below it, then walks the rest by atomicMin (keep the
-    smaller, carry the larger, stop at an empty slot); a value carried out
-    of the last slot spills. Reads and atomic steps of all values are
-    interleaved at random."""
-    slots = np.full((1 << bits) * 4, SENTINEL, dtype=object)
-    live = [[int(v), 4 * _bucket_py(int(v), bits, mult), None] for v in values if v != SENTINEL]
-    spill = []
+def _partition_model(values: list, bits: int, mult: int, widths, pieces, rng):
+    """The partition levels as Python: each level counts each piece's
+    values by bin (bits [shift, shift + width) of the bucket), takes the
+    exclusive sums of the counts in (segment, bin, piece) order, and moves
+    each piece's values to its bins' places in a random order (the scatter's
+    shared atomics). Returns the moved values and each slice's [lo, hi)."""
+    n = len(values)
+    src, segs, shift = list(values), [(0, n)], bits
+    for width, q in zip(widths, pieces):
+        shift -= width
+
+        def bin_of(v, shift=shift, width=width):
+            return (_bucket_py(v, bits, mult) >> shift) & ((1 << width) - 1)
+
+        def piece(a, j, q=q):
+            s, e = segs[a]
+            per = -(-(e - s) // q)
+            lo = min(e, s + j * per)
+            return lo, min(e, lo + per)
+
+        counts = np.zeros((len(segs) << width) * q, dtype=np.int64)
+        for a in range(len(segs)):
+            for j in range(q):
+                lo, hi = piece(a, j)
+                for v in src[lo:hi]:
+                    counts[((a << width) + bin_of(v)) * q + j] += 1
+        offsets = np.concatenate([[0], np.cumsum(counts)])
+        out = [None] * n
+        for a in range(len(segs)):
+            for j in range(q):
+                lo, hi = piece(a, j)
+                for c in range(1 << width):
+                    run = [v for v in src[lo:hi] if bin_of(v) == c]
+                    rng.shuffle(run)
+                    at = int(offsets[((a << width) + c) * q + j])
+                    out[at : at + len(run)] = run
+        assert None not in out
+        src = out
+        segs = [(int(offsets[t * q]), int(offsets[(t + 1) * q]))
+                for t in range(len(segs) << width)]
+    return src, segs
+
+
+def _sorted_model(mine: list, bits: int, sbits: int, mult: int, rng):
+    """slice_sorted as Python: the slice's values counted a bucket, moved to
+    their bucket's place in a random order (the shared atomics'), then each
+    bucket's kept as its four smallest in order, the rest spilled in the
+    order its thread meets them. Returns (image, spill)."""
+    mask = (1 << sbits) - 1
+    by_bucket = [[] for _ in range(1 << sbits)]
+    for k in rng.permutation(len(mine)):
+        by_bucket[_bucket_py(mine[k], bits, mult) & mask].append(mine[k])
+    img, spill = [], []
+    for placed in by_bucket:
+        keep = []
+        for x in placed:
+            keep = sorted(keep + [x])
+            if len(keep) > 4:
+                spill.append(keep.pop())
+        img += keep + [SENTINEL] * (4 - len(keep))
+    return img, spill
+
+
+def _slice_model(src: list, lo: int, hi: int, t: int, bits: int, sbits: int, mult: int, rng,
+                 cap=None):
+    """set_slice_kernel's block for slice t as Python. A slice of a
+    partitioned set of at most ``cap`` values: ``_sorted_model``. Any
+    other: the image all SENTINEL; the slice's values (of src[lo:hi]) into
+    their buckets by chains of atomicMin, the reads and atomic steps of all
+    values interleaved at random, each chain skipping the slots it reads
+    below its value; then the values in another random order, each past its
+    full bucket's fourth slot spilled (equal to the last slot: only beyond
+    the copies the slots hold, counted a bucket). Returns (image, spill)."""
+    mask = (1 << sbits) - 1
+    img = [SENTINEL] * (4 << sbits)
+    mine = [v for v in src[lo:hi]
+            if v != SENTINEL and _bucket_py(v, bits, mult) >> sbits == t]
+    if cap is not None and hi - lo <= cap:
+        assert len(mine) == len([v for v in src[lo:hi] if v != SENTINEL])
+        return _sorted_model(mine, bits, sbits, mult, rng)
+    live = [[v, 4 * (_bucket_py(v, bits, mult) & mask), None] for v in mine]
+    passed = 0
     while live:
         i = int(rng.integers(0, len(live)))
         v, base, j = live[i]
-        if j is None:  # the read ahead: the first slot not already below v
+        if j is None:  # the read: the first slot not already below v
             j = 0
-            while j < 4 and slots[base + j] < v:
+            while j < 4 and img[base + j] < v:
                 j += 1
         else:
-            old = slots[base + j]
-            slots[base + j] = min(old, v)
+            old = img[base + j]
+            img[base + j] = min(old, v)
             if old == SENTINEL:
                 live.pop(i)
                 continue
             v, j = max(old, v), j + 1
         live[i] = [v, base, j]
         if j == 4:
-            spill.append(live.pop(i)[0])
-    return slots.astype(np.int64), spill
+            live.pop(i)
+            passed += 1
+    ties = [0] * (1 << sbits)
+    spill = []
+    for k in rng.permutation(len(mine)):
+        v = mine[k]
+        b = _bucket_py(v, bits, mult) & mask
+        slots = img[4 * b : 4 * b + 4]
+        if slots[3] == SENTINEL:
+            continue
+        if v > slots[3]:
+            spill.append(v)
+        elif v == slots[3]:
+            if ties[b] >= slots.count(v):
+                spill.append(v)
+            ties[b] += 1
+    assert len(spill) == passed  # the count the look-back sums
+    return img, spill
 
 
-@pytest.mark.parametrize("seed", range(3))
-def test_build_kernel_model_matches_plain_in_any_order(seed):
-    """Whatever the order of the card's threads, the inserts end in
-    set_table_plain's first table, and the spill holds its values (the
-    second table is built from it in any order, the tail sorted)."""
+def _build_model(values: list, bits: int, mult: int, rng, sbits: int, widths=(), pieces=(),
+                 cap=None):
+    """set_table's build of one table as Python: the partition levels (none:
+    each slice's block reads every value), then every slice's block (the
+    sorted path for a partitioned slice of at most ``cap`` values), the
+    slices' spills at the offsets the look-back gives (their exclusive
+    sums). Returns (buckets, spill, the slices that took the sorted path)."""
+    t = bits - min(bits, sbits)
+    sbits = min(bits, sbits)
+    if widths:
+        src, segs = _partition_model(values, bits, mult, widths, pieces, rng)
+        assert sum(widths) == t
+    else:
+        src, segs, cap = list(values), [(0, len(values))] * (1 << t), None
+    buckets, spill = [], []
+    for s, (lo, hi) in enumerate(segs):
+        img, sp = _slice_model(src, lo, hi, s, bits, sbits, mult, rng, cap)
+        buckets += img
+        spill += sp
+    n_sorted = sum(hi - lo <= cap for lo, hi in segs) if cap is not None else 0
+    return np.array(buckets, dtype=np.int64), spill, (n_sorted, len(segs) - n_sorted)
+
+
+def _model_set(seed: int) -> list:
+    """An overflowing set with values held twice and three times (the
+    smallest of its most crowded bucket, so that copies of a bucket's last
+    slot spill) and SENTINELs, shuffled."""
     rng = np.random.default_rng(seed)
     table = _sets(31, _codes(200 + seed, 3000))["overflowing buckets"]
     values = u64.from_u64(table).numpy()
-    values = np.concatenate([values, values[:5], [SENTINEL]])  # held twice, SENTINEL
+    b = ck.set_bucket(torch.from_numpy(values), ck.set_bits(len(values)), ck.SET_HASH[0]).numpy()
+    crowded = np.sort(values[b == np.bincount(b).argmax()])[:3]
+    values = np.concatenate([values, values[:5], values[40:43], crowded, crowded,
+                             [SENTINEL] * 3])
     rng.shuffle(values)
-    st = ck.set_table_plain(torch.from_numpy(np.sort(values)))
-    slots, spill = _insert_model(values, st.first.bits, st.first.hash, rng)
-    np.testing.assert_array_equal(slots, st.first.buckets.numpy())
-    second = st.second.buckets[st.second.buckets != u64.SENTINEL]
-    assert sorted(spill) == sorted(second.tolist() + st.tail.tolist())
-    assert len(spill) > 100
+    return [int(v) for v in values]
+
+
+def _check_model(values: list, rng, sbits: int, plan, cap=None) -> int:
+    """Both tables and the tail of the model's build against
+    set_table_plain; plan(bits) gives the partition (widths, pieces).
+    Returns how many slices took the sorted path and how many the
+    chains."""
+    st = ck.set_table_plain(torch.tensor(sorted(values), dtype=torch.int64))
+    first, spill, n1 = _build_model(values, st.first.bits, st.first.hash, rng, sbits,
+                                    *plan(st.first.bits), cap)
+    np.testing.assert_array_equal(first, st.first.buckets.numpy())
+    second_held = st.second.buckets[st.second.buckets != u64.SENTINEL]
+    assert sorted(spill) == sorted(second_held.tolist() + st.tail.tolist())
+    second, tail, n2 = _build_model(spill, st.second.bits, st.second.hash, rng, sbits,
+                                    *plan(st.second.bits), cap)
+    np.testing.assert_array_equal(second, st.second.buckets.numpy())
+    assert sorted(tail) == st.tail.tolist()
+    assert len(spill) > 100 and len(tail) > 0
+    return n1[0] + n2[0], n1[1] + n2[1]
+
+
+@pytest.mark.parametrize("seed", range(4))
+def test_slice_build_model_matches_plain(seed):
+    """Whatever the partitions (one level or two, any number of pieces, any
+    order inside a bin), the order of the threads, the slice size and which
+    slices outgrow the sorted path's room, the slice build gives
+    set_table_plain's tables: an overflowing set with values held twice and
+    SENTINELs."""
+    rng = np.random.default_rng(seed)
+    sbits = int(rng.integers(2, 6))
+    cap = 2 << sbits  # 2 values a bucket: the crowded buckets' slices outgrow it
+
+    def plan(bits):
+        t = bits - min(bits, sbits)
+        if t <= 2:
+            return (), ()
+        cut = int(rng.integers(1, t)) if rng.random() < 0.7 else t
+        widths = (cut, t - cut) if cut < t else (t,)
+        return widths, tuple(int(rng.integers(1, 6)) for _ in widths)
+
+    n_sorted, n_chains = _check_model(_model_set(seed), rng, sbits, plan, cap)
+    assert n_sorted > 0 and n_chains > 0
+
+
+@pytest.mark.parametrize("sbits", [9, 6])
+def test_slice_build_model_unpartitioned(sbits):
+    """A set of one slice (the whole table in one block) and of four (each
+    block reads every value and keeps its slice's): no partition level."""
+    rng = np.random.default_rng(sbits)
+    values = _model_set(10 + sbits)
+    bits = ck.set_bits(len(values))
+    assert bits - min(bits, sbits) == (0 if sbits == 9 else 2)
+    assert _check_model(values, rng, sbits, lambda bits: ((), ()))[0] == 0
+
+
+@pytest.mark.parametrize("n, second, widths", [
+    (0, False, []), (1_120, False, []), (4_096, False, []), (11_489, False, []),
+    (16_384, False, []), (16_385, False, [3]), (1_212_664, True, [10]),
+    (55_643_623, False, [7, 7]), (890_297_968, False, [9, 9])])
+def test_set_partition_plan(n, second, widths):
+    """The partition levels of -f's and the splitter tables' sets: none up
+    to four slices (entry()'s 4,096 splitters, the mesh create's 1,120,
+    whole-genome discovery's 11,489), one level for the second table of the
+    55.6 M set's spill, two of at most 2^10 bins at -f's 55.6 M set and
+    _POOL_CARD_MAX's; the pieces about SET_PART_CHUNK values, the counts
+    under a value each."""
+    bits = ck.set_bits(n) + second
+    plan = ck.set_partition_plan(n, bits)
+    assert [p for p, *_ in plan] == widths
+    shift = bits
+    segs = 1
+    for p, sh, sg, q in plan:
+        shift -= p
+        assert (sh, sg) == (shift, segs) and 1 <= p <= ck.SET_PART_MAX_BITS
+        assert -(-n // (sg * q)) <= ck.SET_PART_CHUNK < 2 * -(-n // (sg * q)) or q == 1
+        assert (sg << p) * q <= n // 4 + (1 << 20)
+        segs <<= p
+    if plan:
+        assert shift == min(bits, ck.SET_SLICE_BITS)
 
 
 def test_singleton_set_spill_share():

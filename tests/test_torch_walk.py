@@ -8,6 +8,13 @@
   CPU), is held against ``greedy_walk_plain``'s ``searchsorted``
   singleton mask on pools with duplicates, with SENTINELs, with bit-63
   values, with one heavily skewed prefix, and on an empty pool.
+- A Python model of the index's build (one read of the pool in tiles,
+  each tile's offset by decoupled look-back in random orders, then the
+  directory's pass over the singletons) against ``walk_index_plain``, on
+  pools whose tile boundaries fall inside runs of equal values and at
+  SENTINEL.
+- The value-sampled discovery builds one index of its pool and walks every
+  contig over it, with agc_tpu's splitters.
 - The port's greedy walk against agc_tpu's speculative walk
   (splitter_greedy_canon_kernel) on inputs that reach the new kernel's
   edge branches: windows without hits, seg below the window width, cap
@@ -117,6 +124,104 @@ def test_walk_index_lookup_matches_searchsorted(kind):
         assert int((dirs[1:] - dirs[:-1]).max()) > singles.numel() // 2
 
 
+def _singles_model(pool: np.ndarray, tile: int, rng) -> np.ndarray:
+    """singles_kernel as Python: each tile of ``tile`` entries flags its
+    singletons against its neighbours (SENTINEL outside the pool) and
+    publishes their count; the tiles' steps run in a random order, and a
+    tile's look-back sums the words below it down to the first that holds
+    a prefix, waiting while one is unset; then it writes its singletons in
+    order from that offset. Returns the first S entries of the output."""
+    p = len(pool)
+    tiles = -(-p // tile)
+    out = np.full(p, 12345, dtype=np.int64)  # the buffer has the pool's length
+    status = [None] * tiles  # (is a prefix, value)
+    flags = {}
+    total = None
+    pending = list(range(tiles))
+    while pending:
+        t = pending[int(rng.integers(0, len(pending)))]
+        lo = t * tile
+        if t not in flags:
+            ext = [pool[i] if 0 <= i < p else SENT for i in range(lo - 1, lo + tile + 1)]
+            flags[t] = [ext[j] != SENT and ext[j] != ext[j - 1] and ext[j] != ext[j + 1]
+                        for j in range(1, tile + 1)]
+            status[t] = (t == 0, sum(flags[t]))
+            if t > 0:
+                continue
+            ex = 0
+        else:
+            ex, i = 0, t - 1
+            while i >= 0 and status[i] is not None and not status[i][0]:
+                ex += status[i][1]
+                i -= 1
+            if i >= 0 and status[i] is None:
+                continue  # waits on a tile that has not published
+            ex += status[i][1] if i >= 0 else 0
+            status[t] = (True, ex + sum(flags[t]))
+        mine = [pool[lo + j] for j in range(tile) if flags[t][j]]
+        out[ex : ex + len(mine)] = mine
+        if t == tiles - 1:
+            total = ex + len(mine)
+        pending.remove(t)
+    return out[: total or 0]
+
+
+def _dir_model(singles: np.ndarray, bits: int) -> np.ndarray:
+    """dir_kernel as Python: entry i of singles (i = S: past the end) owns
+    the buckets after its predecessor's, up to its own."""
+    dirs = np.zeros((1 << bits) + 1, dtype=np.int64)
+    b = CK.pool_buckets(torch.from_numpy(singles), bits).numpy()
+    for i in range(len(singles) + 1):
+        lo = int(b[i - 1]) + 1 if i > 0 else 0
+        hi = int(b[i]) if i < len(singles) else 1 << bits
+        dirs[lo : hi + 1] = i
+    return dirs
+
+
+def _tiled_pool(kind: str, tile: int, rng) -> np.ndarray:
+    """Pools whose tile boundaries fall inside runs of equal values and at
+    SENTINEL."""
+    vals = np.sort(_fresh(rng, 40 * tile))
+    reps = rng.integers(1, 4, vals.size)
+    if kind == "runs across tiles":  # runs of 2-5 ending just past a boundary
+        reps[::7] = 5
+    pool = np.repeat(vals, reps)
+    if kind == "runs across tiles":
+        return pool
+    if kind == "sentinel at a boundary":
+        cut = (len(pool) // tile - 3) * tile
+        return np.concatenate([pool[:cut], np.full(2 * tile + 5, SENT)])
+    if kind == "sentinel inside a tile":
+        cut = (len(pool) // tile - 3) * tile + tile // 2
+        return np.concatenate([pool[:cut], np.full(tile + 3, SENT)])
+    if kind == "tiles without a singleton":  # most tiles' values held twice
+        pool = np.repeat(vals, 2)
+        pool = np.sort(np.concatenate([pool, _fresh(rng, 5)]))
+        return pool
+    assert kind == "one entry"
+    return vals[:1]
+
+
+@pytest.mark.parametrize("kind", ["runs across tiles", "sentinel at a boundary",
+                                  "sentinel inside a tile", "tiles without a singleton",
+                                  "one entry"])
+def test_one_pass_compaction_model_matches_plain(kind):
+    """The one read of the pool (tiles of 16 and of 7, a look-back in random
+    orders) gives walk_index_plain's singletons, and the directory's pass
+    over them its directory."""
+    rng = np.random.default_rng(sum(map(ord, kind)))
+    for tile in (16, 7):
+        pool = _tiled_pool(kind, tile, rng)
+        singles, dirs = CK.walk_index_plain(torch.from_numpy(pool))
+        for _ in range(3):  # three random orders of the tiles
+            got = _singles_model(pool, tile, rng)
+            assert np.array_equal(got, singles.numpy()), (kind, tile)
+        bits = CK.index_bits(len(got))
+        assert np.array_equal(_dir_model(got, bits), dirs.numpy().astype(np.int64) & 0xFFFFFFFF)
+        if kind != "one entry":
+            assert 0 < len(got) < len(pool)
+
+
 def _walk_case(name: str, rng):
     """(canon flipped int64, seg, cap) for one contig."""
     if name == "mostly duplicates":  # windows without a hit end rounds early
@@ -167,3 +272,53 @@ def test_greedy_walk_edge_cases_match_jax(name):
         assert count == cap
     else:
         assert count > 1
+
+
+def test_sampled_path_builds_one_index(tmp_path, monkeypatch):
+    """Value-sampled discovery (_POOL_DEVICE_MAX lowered on both engines,
+    as tests/test_torch_sampled.py does) builds the pool's walk_index once
+    and walks every contig over it: through that index each contig's codes
+    are the pool's singletons, and the splitters are agc_tpu's."""
+    from agc_tpu.core import compressor as tpu_comp
+    from agc_tpu_torch.core import compressor as port_comp
+    from util import write_fa
+
+    monkeypatch.setattr(tpu_comp.Compressor, "_POOL_DEVICE_MAX", 1 << 14)
+    monkeypatch.setattr(port_comp.Compressor, "_POOL_DEVICE_MAX", 1 << 14)
+    monkeypatch.setenv("AGC_TPU_DEVICE_MATCH", "0")
+    monkeypatch.setenv("AGC_TPU_DISC", "device")
+    rng = np.random.default_rng(21)
+    contigs = [rng.integers(0, 4, n, dtype=np.uint8) for n in (24000, 15000, 9000)]
+    contigs[1][3000:9000] = contigs[0][10000:16000]  # a repeat across contigs
+    ref = str(tmp_path / "ref.fa")
+    alpha = np.frombuffer(b"ACGT", dtype=np.uint8)
+    write_fa(ref, [(f"c{i}", alpha[c].tobytes().decode()) for i, c in enumerate(contigs)])
+    built, walked = [], []
+
+    def index_once(pool):
+        built.append(CK.walk_index(pool))
+        return built[-1]
+
+    real_walk = port_comp.find_splitter_emissions_packed
+
+    def walk(canon, placements, k, pool, seg, index=None):
+        walked.append(index)
+        singles, dirs = index
+        assert torch.equal(singles, CK.walk_index_plain(pool)[0])
+        assert torch.equal(_index_singletons(canon, singles, dirs),
+                           _searchsorted_singletons(canon, pool))
+        return real_walk(canon, placements, k, pool, seg, index=index)
+
+    monkeypatch.setattr(port_comp, "walk_index", index_once)
+    monkeypatch.setattr(port_comp, "find_splitter_emissions_packed", walk)
+    params = dict(segment_size=2000)
+    ours = port_comp.Compressor(str(tmp_path / "p.agc"), port_comp.CompressorParams(**params),
+                                reference_file=ref, device="cpu")
+    theirs = tpu_comp.Compressor(str(tmp_path / "t.agc"), tpu_comp.CompressorParams(**params),
+                                 reference_file=ref)
+    got = ours.splitter_set_snapshot()
+    assert got == theirs.splitter_set_snapshot() and len(got) > 10
+    assert len(built) == 1 and len(walked) == len(contigs)
+    assert all(w is built[0] for w in walked)
+    ours.abort()
+    theirs.abort()
