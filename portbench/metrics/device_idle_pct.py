@@ -1,0 +1,8 @@
+"""The share of the traced window in which the card ran no kernel, copy
+or memset: one less the union of the device's activity over the window."""
+
+
+def read(run):
+    if run.trace is None or run.trace.busy_s <= 0:
+        return None
+    return 100.0 * (1.0 - run.trace.busy_s / run.trace.window_s)
