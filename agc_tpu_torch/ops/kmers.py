@@ -33,6 +33,7 @@ import torch
 
 from ..native import get_lib
 
+from ..utils.profiling import span
 from . import u64
 from .cuda_kmers import (
     dir_mix,
@@ -375,14 +376,17 @@ def _dispatch_scan_batch(mat: np.ndarray, table: ScanTable, cap: int):
     """Upload a packed row matrix and scan it; returns (result np.uint32,
     is_global): 'cmp' tables give per-row vectors, 'join' tables one
     global-join vector for the whole dispatch."""
-    packed = torch.from_numpy(mat).to(table.tmix.device)
-    if table.kind == "cmp":
-        out = scan_batch_compact_p4(packed, table.k, table.tmix, cap)
-        return u64.to_u32(out), False
-    rows, half = mat.shape
-    cap_total = _cap_total_for(rows, half * 2)
-    out = scan_batch_join_global_p4(packed, table.k, table.tmix, cap_total)
-    return u64.to_u32(out), True
+    with span("scan_upload"):
+        packed = torch.from_numpy(mat).to(table.tmix.device)
+    with span("scan_launch"):
+        if table.kind == "cmp":
+            out = scan_batch_compact_p4(packed, table.k, table.tmix, cap)
+        else:
+            rows, half = mat.shape
+            out = scan_batch_join_global_p4(packed, table.k, table.tmix,
+                                            _cap_total_for(rows, half * 2))
+    with span("scan_download"):
+        return u64.to_u32(out), table.kind != "cmp"
 
 
 # ---------------------------------------------------------------------------
@@ -690,12 +694,15 @@ class ScanBatcher:
     (or a join dispatch) whose hit count overflowed its cap.
 
     ``table`` is a make_scan_table() ScanTable (or None for no
-    splitters); it lives on the device the scans run on.
+    splitters); it lives on the device the scans run on. ``timers``, a
+    StageTimers, counts the dispatches, their rows, and the symbols
+    against the rows' capacity (the fill).
     """
 
-    def __init__(self, k: int, table):
+    def __init__(self, k: int, table, timers=None):
         self.k = k
         self.table = table
+        self.timers = timers
         self._buf: list[dict] = []
         self._pending_syms = 0
         self._dl_cache: dict = {}
@@ -769,13 +776,20 @@ class ScanBatcher:
 
     def _submit(self, group_rows, width: int, cap: int) -> None:
         table = self.table
+        if self.timers is not None:
+            self.timers.count("scan_dispatches")
+            self.timers.count("scan_rows", len(group_rows))
+            self.timers.count("scan_symbols", sum(len(part["codes"]) for row in group_rows
+                                                  for part, _ in row))
+            self.timers.count("scan_capacity", len(group_rows) * width)
 
         def job():
-            mat = np.full((len(group_rows), width // 2), 0xFF, dtype=np.uint8)
-            for r, row in enumerate(group_rows):
-                for part, off in row:
-                    pk = pack4_np(part.pop("codes"))
-                    mat[r, off // 2 : off // 2 + len(pk)] = pk
+            with span("scan_pack"):
+                mat = np.full((len(group_rows), width // 2), 0xFF, dtype=np.uint8)
+                for r, row in enumerate(group_rows):
+                    for part, off in row:
+                        pk = pack4_np(part.pop("codes"))
+                        mat[r, off // 2 : off // 2 + len(pk)] = pk
             return _dispatch_scan_batch(mat, table, cap), mat
 
         fut = _xfer_pool().submit(job)
