@@ -1408,6 +1408,9 @@ class Compressor:
                 if self._store_pool is None:
                     from concurrent.futures import ThreadPoolExecutor
 
+                    # the one store worker, as in _store_segments: the
+                    # batch queues behind the barriers' jobs, whose groups
+                    # fan across _n_threads there (_fans)
                     self._store_pool = ThreadPoolExecutor(max_workers=1)
                 self._batches_stored_end = self.processed_samples
                 fut = self.collection.store_contig_batch(
@@ -2496,25 +2499,18 @@ class Compressor:
             if self._store_pool is None:
                 from concurrent.futures import ThreadPoolExecutor
 
-                # one worker, one job per barrier: per-group submits would
-                # only add GIL churn (intra-barrier parallelism buys nothing
-                # on a single-core host; the native LZ/zstd calls release
-                # the GIL so the job overlaps the next sample's scans)
+                # one worker owns each barrier's store job, in order, so
+                # the job overlaps the next sample's scans; inside the job
+                # (and the close's finish) the groups fan across a pool
+                # of _n_threads (_fans)
                 self._store_pool = ThreadPoolExecutor(max_workers=1)
 
             def store_all(groups=groups):
                 with self.timers.stage("store_barrier"):
                     anchor_prepass()
                     out = []
-                    if (
-                        self._n_threads > 1
-                        and len(groups) > 4
-                        and self._entropy_batcher is None
-                    ):
-                        # multi-core host: groups are independent until the
-                        # archive append, and LZ/zstd release the GIL — fan
-                        # the per-group encodes across cores (ordered
-                        # results keep placements deterministic)
+                    if self._fans(len(groups)):
+                        # ordered results keep placements deterministic
                         from concurrent.futures import (
                             ThreadPoolExecutor as _TPE,
                         )
@@ -2628,21 +2624,20 @@ class Compressor:
         # finalize partial packs on the store worker while this thread
         # serializes the remaining metadata (zstd releases the GIL)
         live = [seg for seg in self.v_segments if seg is not None]
+        # stream ids follow registration order: register the finish's
+        # streams here, in group order, before any worker or metadata
+        # part can register one
+        for seg in live:
+            seg.register_finish_stream()
         finish_fut = None
         if self._store_pool is not None and live:
             def finish_all():
                 with self.timers.stage("store_finish"):
-                    for seg in live:
-                        seg.finish()
-                    if self._entropy_batcher is not None:
-                        self._entropy_batcher.flush()
+                    self._finish_groups(live)
 
             finish_fut = self._store_pool.submit(finish_all)
         else:
-            for seg in live:
-                seg.finish()
-            if self._entropy_batcher is not None:
-                self._entropy_batcher.flush()
+            self._finish_groups(live)
 
         # earlier metadata batches were compressed on the same worker
         # queue; their parts must land before the partial batch below
@@ -2706,6 +2701,35 @@ class Compressor:
         self.writer.close()
         if self._mode == "append":
             self._append_src.close()
+
+    def _fans(self, n_groups: int) -> bool:
+        """Whether a store job's groups fan across a pool of _n_threads
+        workers: on a multi-core host groups are independent until the
+        archive append, and LZ/zstd release the GIL. The tpu-rans sink
+        defers and flushes on one thread, in order."""
+        return (
+            self._entropy_batcher is None
+            and self._n_threads > 1
+            and n_groups > 4
+        )
+
+    def _finish_groups(self, live: list) -> None:
+        """Finish every live group's last packs, fanned as a barrier's
+        encodes are (_fans), in turn otherwise. Each group writes only its
+        own, already registered stream, in its own order: the archive is
+        the serial loop's to the byte."""
+        fanned = self._fans(len(live))
+        if fanned:
+            from concurrent.futures import ThreadPoolExecutor
+
+            with ThreadPoolExecutor(max_workers=self._n_threads) as pool:
+                list(pool.map(lambda seg: seg.finish(), live))
+        else:
+            for seg in live:
+                seg.finish()
+            if self._entropy_batcher is not None:
+                self._entropy_batcher.flush()
+        self.timers.count("store_finish_fanned", len(live) if fanned else 0)
 
     def _store_metadata(self) -> None:
         """reference: store_metadata (agc_compressor.cpp:175-284)."""

@@ -533,6 +533,17 @@ class SegmentWriter:
     def get_ref_size(self) -> int:
         return self.ref_size
 
+    def register_finish_stream(self) -> None:
+        """Register the delta stream that finish() will write to, if it
+        writes one. An appended group whose last pack is its only delta
+        part has no registered stream until its finish: registering here,
+        in group order, keeps stream ids independent of which thread's
+        finish runs first."""
+        if self.v_lzp or self.v_raw or self._packed_delta is not None:
+            self.writer.register_stream(
+                self.name + ss_delta_ext(self.archive_version)
+            )
+
     def finish(self) -> None:
         self._ensure_unpacked()
         if self.v_lzp:
